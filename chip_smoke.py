@@ -1,0 +1,466 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py [--seed N]
+
+Run from the repository root on a machine with an NVIDIA Hopper card.  It
+drives the README quick start through the port (``strugatzki_tpu_torch``):
+
+1. device: the card's name and power limit, and the full-f32 matmul settings;
+2. build: ``csrc/prep.cu`` with nvcc for sm_90a;
+3. kernel: the prep kernel against its plain PyTorch version on the card, at
+   the slice's chunk shape ``[32, 14, _bucket(10335)]`` and on ragged batches
+   with zero-length files and degenerate norm rows, and both timed;
+4. slice: 20 PCM16 files of 120 s plus a query, written from the seed;
+   ``-f`` over the folder, ``--stats``, and a punch-in/punch-out search
+   (``FeatureCorrelation``, temporal weight 0.5, 12-20 s, top 10) on CUDA.
+   One database file holds the query's 20-30 s at ~40 s and its 45-50 s at
+   ~55 s; the search must rank it first at exactly those frames.  One file's
+   features and one chunk's traces are held against the CPU.
+
+The last line of standard output is ``{"ok": true, "device": {...}}``; the
+line before it is the card's name and power limit from nvidia-smi, and the
+one before that the kernels' launch counts and times as JSON.  Any failed
+check raises: the script then exits non-zero and prints no result line.
+Without CUDA, or without the package beside it, it exits non-zero at once.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+SR = 44100
+STEP = 512
+
+#: the slice's deployment (BASELINE.json's correlation config, scaled to
+#: two-minute files): 20 database files, a 10 s punch-in, a 5 s punch-out
+DB_FILES = 20
+SECONDS = 120
+PUNCH_IN = (20.0, 30.0)
+PUNCH_OUT = (45.0, 50.0)
+DUR = (12.0, 20.0)
+NUM_MATCHES = 10
+TEMP_WEIGHT = 0.5
+#: where the target holds the punches, in feature frames after the query's
+#: own position (~20 s and ~10 s: frame-aligned, so the planted windows
+#: equal the query's windows sample for sample)
+SHIFT_IN = 1723
+SHIFT_OUT = 861
+#: samples planted on each side of a punch beyond its span: one window
+MARGIN = 1024
+
+
+class CheckFailed(RuntimeError):
+    pass
+
+
+def require(ok, what: str) -> None:
+    if not ok:
+        raise CheckFailed(what)
+
+
+def card_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True, timeout=60)
+    return r.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device milliseconds per call of ``fn`` over ``iters`` calls."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the prep kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _features(rng, B, C, T, lens):
+    """Feature-like stacks: loudness/32 in [0, 0.6], MFCC rows around 0.5,
+    zero past each file's length (as ``pad_stack`` leaves them)."""
+    x = np.empty((B, C, T), np.float32)
+    x[:, 0] = rng.uniform(0.0, 0.6, (B, T))
+    x[:, 1:] = rng.normal(0.5, 0.1, (B, C - 1, T))
+    for b, n in enumerate(lens):
+        x[b, :, n:] = 0.0
+    return x
+
+
+def _norm_of(x, lens):
+    rows = np.concatenate([x[b, :, :n] for b, n in enumerate(lens) if n],
+                          axis=1)
+    return np.stack([rows.min(axis=1), rows.max(axis=1)], 1).astype(np.float32)
+
+
+def _close(a, b, rtol=1e-5):
+    """Elementwise: equal (NaN to NaN, inf to the same inf) or, where
+    finite, within ``rtol`` (the two sum the shifts in another order)."""
+    a, b = np.asarray(a), np.asarray(b)
+    with np.errstate(invalid="ignore"):
+        return (a == b) | (np.isnan(a) & np.isnan(b)) | (
+            np.isfinite(b) & (np.abs(a - b) <= rtol * np.abs(b)))
+
+
+def compare_prep(feats, norm, lens, nt):
+    """Kernel and plain version on the card; returns the max |error| over
+    finite values after checking every stated tolerance."""
+    import torch
+
+    from strugatzki_tpu_torch.kernels import prep
+
+    dev = torch.device("cuda")
+    f = torch.as_tensor(feats, device=dev)
+    n = torch.as_tensor(norm, device=dev)
+    ln = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    out_k, sh_k = prep.prepare_database_cuda(f, n, ln, nt)
+    out_r, sh_r = prep.prepare_database_reference(f, n, ln, nt)
+    torch.cuda.synchronize()
+    out_k, sh_k = out_k.cpu().numpy(), sh_k.cpu().numpy()
+    out_r, sh_r = out_r.cpu().numpy(), sh_r.cpu().numpy()
+
+    require((np.isnan(out_k) == np.isnan(out_r)).all(), "NaN positions")
+    require((np.isposinf(out_k) == np.isposinf(out_r)).all()
+            and (np.isneginf(out_k) == np.isneginf(out_r)).all(),
+            "inf positions")
+    fin = np.isfinite(out_r)
+    err = float(np.abs(out_k[fin] - out_r[fin]).max()) if fin.any() else 0.0
+    require(err <= 1e-6, f"finite values differ by {err:.3e} > 1e-6")
+    require(_close(sh_k, sh_r).all(), "temporal shifts differ beyond rtol 1e-5")
+    for b, ln_b in enumerate(lens):
+        tail = out_k[b, :, ln_b:]
+        if tail.shape[1] == 0:
+            continue
+        require(np.array_equal(tail[:nt], np.full_like(tail[:nt], -sh_k[b]),
+                               equal_nan=True), f"temporal tail of file {b}")
+        s = tail[nt:]
+        require(np.array_equal(s, np.full_like(s, s[0, 0]), equal_nan=True),
+                f"spectral tail of file {b} is not one constant")
+        require(_close(s[0, 0], out_r[b, nt, ln_b]),
+                f"spectral shift of file {b}")
+    return err
+
+
+def kernel_phase(seed: int, card: str):
+    import torch
+
+    from strugatzki_tpu_torch.analysis.correlation import CHUNK_SIZE, _bucket
+    from strugatzki_tpu_torch.dsp.frontend import num_output_frames
+    from strugatzki_tpu_torch.kernels import prep
+
+    rng = np.random.default_rng(seed)
+    frames = num_output_frames(SECONDS * SR, STEP)
+    B, C, T = CHUNK_SIZE, 14, _bucket(frames)
+    lens = [frames] * DB_FILES + [0] * (B - DB_FILES)
+    feats = _features(rng, B, C, T, lens)
+    norm = _norm_of(feats, lens)
+    err = compare_prep(feats, norm, lens, 1)
+    print(f"kernel: prep [{B}, {C}, {T}] vs plain: max |err| {err:.3e} "
+          f"(atol 1e-6), shifts within rtol 1e-5, tails exactly -shift")
+
+    lens_r = [3000, 0, 1, 1023, 1024, 2999, 1777]
+    for name, row, nt in (("spectral", 5, 1), ("temporal", 0, 1),
+                          ("two temporal rows", 1, 2)):
+        f = _features(rng, len(lens_r), C, 3000, lens_r)
+        nrm = _norm_of(f, lens_r)
+        nrm[row, 1] = nrm[row, 0]
+        f[0, row, :7] = nrm[row, 0]          # 0/0 as well as x/0
+        e = compare_prep(f, nrm, lens_r, nt)
+        print(f"kernel: ragged {lens_r}, degenerate {name} norm row, "
+              f"num_temporal {nt}: max |err| {e:.3e}")
+
+    dev = torch.device("cuda")
+    ft = torch.as_tensor(feats, device=dev)
+    nt_ = torch.as_tensor(norm, device=dev)
+    lt = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+
+    def kern():
+        prep.prepare_database_cuda(ft, nt_, lt, 1)
+
+    def plain():
+        prep.prepare_database_reference(ft, nt_, lt, 1)
+
+    iters = 200
+    runs = [("plain", cuda_ms(plain, iters)), ("kernel", cuda_ms(kern, iters)),
+            ("kernel", cuda_ms(kern, iters)), ("plain", cuda_ms(plain, iters))]
+    ms = sum(t for k, t in runs if k == "kernel") / 2
+    plain_ms = sum(t for k, t in runs if k == "plain") / 2
+    moved = 3 * B * C * T * 4
+    print(f"kernel: prep {ms:.4f} ms/call vs plain {plain_ms:.4f} ms/call "
+          f"(runs {', '.join(f'{k} {t:.4f}' for k, t in runs)}; "
+          f"{moved / ms / 1e6:.0f} GB/s at 3 passes of [B,C,T] f32) "
+          f"on {card}")
+    return err, ms, plain_ms
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the slice
+# ---------------------------------------------------------------------------
+
+def _sound(rng, seconds: int) -> np.ndarray:
+    """Noise re-coloured every second (random spectral tilt and level), so
+    both the loudness row and the MFCC rows move."""
+    seg = rng.standard_normal((seconds, SR))
+    spec = np.fft.rfft(seg, axis=1)
+    f = np.arange(spec.shape[1]) / spec.shape[1]
+    tilt = rng.uniform(0.0, 2.0, (seconds, 1))
+    gain = rng.uniform(0.02, 0.25, (seconds, 1))
+    spec *= gain * (1.0 + f / 0.02) ** -tilt
+    x = np.fft.irfft(spec, n=SR, axis=1).reshape(-1)
+    return (x / max(1.0, np.abs(x).max() / 0.9)).astype(np.float32)
+
+
+def write_sounds(snd: str, seed: int):
+    """The query and the database files; returns the target's name and the
+    punch frames it must be found at."""
+    from strugatzki_tpu_torch.io import AIFF, AudioFileSpec, SampleFormat
+    from strugatzki_tpu_torch.io import audiofile as af
+
+    rng = np.random.default_rng(seed)
+    spec = AudioFileSpec(AIFF, SampleFormat.INT16, 1, float(SR))
+    query = _sound(rng, SECONDS)
+    af.write(os.path.join(snd, "query.aif"), query[None], spec)
+    target = DB_FILES // 2
+    for i in range(DB_FILES):
+        x = _sound(rng, SECONDS)
+        if i == target:
+            for (s0, s1), shift in ((PUNCH_IN, SHIFT_IN),
+                                    (PUNCH_OUT, SHIFT_OUT)):
+                a, b = int(s0 * SR) - MARGIN, int(s1 * SR) + MARGIN
+                d = shift * STEP
+                x[a + d:b + d] = query[a:b]
+        af.write(os.path.join(snd, f"db{i:02d}.aif"), x[None], spec)
+
+    def frame(s):                   # the reference's full_to_feat(secs)
+        return (int(s * SR + 0.5) + STEP // 2) // STEP
+
+    return (f"db{target:02d}.aif", (frame(PUNCH_IN[0]) + SHIFT_IN) * STEP,
+            (frame(PUNCH_OUT[0]) + SHIFT_OUT) * STEP)
+
+
+def _corr_config(db: str):
+    from strugatzki_tpu_torch import CorrelationConfig, Punch, Span
+
+    def fr(s):
+        return int(s * SR + 0.5)     # the CLI's secs → frames
+    return CorrelationConfig(
+        database_folder=db, meta_input=os.path.join(db, "query_feat.xml"),
+        punch_in=Punch(Span(fr(PUNCH_IN[0]), fr(PUNCH_IN[1])), TEMP_WEIGHT),
+        punch_out=Punch(Span(fr(PUNCH_OUT[0]), fr(PUNCH_OUT[1])),
+                        TEMP_WEIGHT),
+        min_punch=fr(DUR[0]), max_punch=fr(DUR[1]), num_matches=NUM_MATCHES)
+
+
+def run_slice(snd: str, db: str):
+    """``-f`` and ``--stats`` through the CLI, then the search through the
+    correlation factory, all on CUDA; returns (matches, -f seconds, -c
+    seconds)."""
+    from strugatzki_tpu_torch import FeatureCorrelation
+    from strugatzki_tpu_torch.cli import main
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(["-f", "-d", db, "--device", "cuda", snd])
+    t_f = time.perf_counter() - t0
+    require(rc == 0, f"-f exited {rc}:\n{out.getvalue()}")
+    n_ok = out.getvalue().count("Success.")
+    with contextlib.redirect_stdout(out):
+        rc = main(["--stats", "-d", db])
+    require(rc == 0, f"--stats exited {rc}:\n{out.getvalue()}")
+    print(f"slice: -f wrote {n_ok} feature files, --stats wrote feat_norms.aif")
+
+    # skip_nan: sqrt(inSim*outSim) of a negative product is NaN, and the
+    # reference ranks a NaN match first; this search wants real matches
+    FeatureCorrelation.device = "cuda"
+    FeatureCorrelation.skip_nan = True
+    t0 = time.perf_counter()
+    matches = FeatureCorrelation.run(_corr_config(db)).result()
+    t_c = time.perf_counter() - t0
+    return matches, t_f, t_c
+
+
+def check_matches(matches, target: str, start: int, stop: int) -> None:
+    for m in matches[:3]:
+        print(f"slice: match {os.path.basename(m.file)} "
+              f"span [{m.punch.start}, {m.punch.stop}) sim {m.sim:.7f} "
+              f"boost in {m.boost_in:.4f} out {m.boost_out:.4f}")
+    require(len(matches) == NUM_MATCHES, f"{len(matches)} matches")
+    top = matches[0]
+    require(os.path.basename(top.file) == target,
+            f"top match {top.file}, planted in {target}")
+    require((top.punch.start, top.punch.stop) == (start, stop),
+            f"top span {top.punch}, planted at [{start}, {stop})")
+    require(top.sim > 0.999, f"top sim {top.sim}")
+    require(all(np.isfinite(m.sim) and -1.0 <= m.sim <= 1.0 + 1e-6
+                for m in matches), "match sims")
+
+
+def cpu_checks(snd: str, db: str, target: str) -> None:
+    """One file's CUDA features and one chunk's CUDA traces against the
+    port's CPU path."""
+    from strugatzki_tpu_torch.analysis.correlation import (
+        CHUNK_SIZE, InputTemplate, _bucket)
+    from strugatzki_tpu_torch.analysis.extraction import fix_nans
+    from strugatzki_tpu_torch.dsp.frontend import extract_features
+    from strugatzki_tpu_torch.io import audiofile as af
+    from strugatzki_tpu_torch.kernels.prep import prepare_database
+    from strugatzki_tpu_torch.parallel.sweep import _batched_traces, pad_stack
+
+    name = os.path.splitext(target)[0]
+    cuda_feats, _ = af.read(os.path.join(db, f"{name}_feat.aif"))
+    audio, _ = af.read(os.path.join(snd, target))
+    mono = np.round(audio[0] * 32768.0).astype(np.int16)
+    cpu_feats = fix_nans(extract_features(mono, float(SR), device="cpu"))
+    require(cuda_feats.shape == cpu_feats.shape, "feature shapes")
+    err = float(np.abs(cuda_feats - cpu_feats).max())
+    require(err <= 2e-5, f"CUDA vs CPU features differ by {err:.3e} > 2e-5")
+    print(f"slice: {target} features [{cpu_feats.shape[0]}, "
+          f"{cpu_feats.shape[1]}] CUDA vs CPU max |err| {err:.3e} (2e-5)")
+
+    cfg = _corr_config(db).build()
+    norm, _ = af.read(os.path.join(db, "feat_norms.aif"))     # [C, 2]
+    query, _ = af.read(os.path.join(db, "query_feat.aif"))
+    i0 = (cfg.punch_in.span.start + STEP // 2) // STEP
+    i1 = (cfg.punch_in.span.stop + STEP // 2) // STEP
+    tmpl = InputTemplate.from_features(query, norm, i0, i1)
+    names = sorted(n for n in os.listdir(db)
+                   if n.endswith("_feat.aif") and n.startswith("db"))
+    mats = [af.read(os.path.join(db, n))[0] for n in names]
+    mats += [np.zeros((mats[0].shape[0], 1), np.float32)] * (
+        CHUNK_SIZE - len(mats))
+    raw, lens = pad_stack(mats)
+    t_pad = _bucket(raw.shape[2])
+    raw = np.pad(raw, ((0, 0), (0, 0), (0, t_pad - raw.shape[2])))
+    traces = {}
+    for dev in ("cuda", "cpu"):
+        xs, sh = prepare_database(raw, norm, lens, device=dev)
+        s, b = _batched_traces(
+            xs, tmpl.device_temporal(dev), tmpl.device_spectral(dev),
+            tmpl.temporal_std, tmpl.spectral_std, tmpl.ln_avg_loudness, sh,
+            TEMP_WEIGHT, cfg.max_boost)
+        traces[dev] = (s.cpu().numpy(), b.cpu().numpy())
+    L = i1 - i0
+    worst_s = worst_b = 0.0
+    for k, n in enumerate(lens[:len(names)]):
+        w = n - L + 1
+        (sc, bc), (sp, bp) = ([t[0][k, :w], t[1][k, :w]]
+                              for t in (traces["cuda"], traces["cpu"]))
+        require((np.isnan(bc) == np.isnan(bp)).all(), "boost NaN positions")
+        worst_s = max(worst_s, float(np.abs(sc - sp).max()))
+        ok = np.isfinite(bp)
+        worst_b = max(worst_b, float((np.abs(bc[ok] - bp[ok])
+                                      / np.abs(bp[ok])).max()))
+    require(worst_s <= 3e-5, f"CUDA vs CPU sims differ by {worst_s:.3e}")
+    require(worst_b <= 1e-4, f"CUDA vs CPU boosts differ by {worst_b:.3e}")
+    print(f"slice: one chunk's punch-in traces [{CHUNK_SIZE}, "
+          f"{traces['cpu'][0].shape[1]}] CUDA vs CPU: sims max |err| "
+          f"{worst_s:.3e} (3e-5), boosts max rel err {worst_b:.3e} (1e-4)")
+
+
+def slice_phase(seed: int, card: str) -> int:
+    from strugatzki_tpu_torch.kernels import prep
+
+    with tempfile.TemporaryDirectory(prefix="strugatzki_smoke_") as tmp:
+        snd, db = os.path.join(tmp, "snd"), os.path.join(tmp, "db")
+        os.makedirs(snd)
+        os.makedirs(db)
+        target, start, stop = write_sounds(snd, seed)
+
+        prep.KERNEL_LAUNCHES = 0
+        prep.REFERENCE_CALLS = 0
+        matches, t_f, t_c = run_slice(snd, db)
+        launches, refs = prep.KERNEL_LAUNCHES, prep.REFERENCE_CALLS
+        print(f"slice: prep kernel launches {launches}, plain-version calls "
+              f"{refs}")
+        require(launches > 0, "the search never launched the prep kernel")
+        require(refs == 0, "the search reached the plain version on CUDA")
+        check_matches(matches, target, start, stop)
+        audio_s = (DB_FILES + 1) * SECONDS
+        print(f"slice: -f {audio_s} s of audio in {t_f:.3f} s = "
+              f"{audio_s / t_f:.1f}x realtime; -c over {DB_FILES} files in "
+              f"{t_c:.3f} s (first run, cold caches) on {card}")
+        cpu_checks(snd, db, target)
+    return launches
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(REPO, "strugatzki_tpu_torch")):
+        print("chip_smoke: run it from a checkout of the repository",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+
+    from strugatzki_tpu_torch.kernels import _build
+    from strugatzki_tpu_torch.runtime.device import resolve
+
+    resolve("cuda")
+    name = torch.cuda.get_device_name(0)
+    card = card_line()
+    require(torch.backends.cuda.matmul.allow_tf32 is False
+            and torch.backends.cudnn.allow_tf32 is False
+            and torch.get_float32_matmul_precision() == "highest",
+            "TF32 settings")
+    print(f"device: {name} ({card}); torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}; TF32 off for matmul and cuDNN, "
+          f"float32 matmul precision 'highest'")
+
+    t0 = time.perf_counter()
+    _build.load("prep")
+    info = _build.build_info["prep"]
+    print(f"build: csrc/prep.cu with nvcc {' '.join(_build.NVCC_FLAGS)} in "
+          f"{info['seconds']:.2f} s ({time.perf_counter() - t0:.2f} s with "
+          f"loading)")
+    for line in info["log"].splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print(f"build: {line.strip()}")
+
+    err, ms, plain_ms = kernel_phase(args.seed, card)
+    launches = slice_phase(args.seed, card)
+
+    print(json.dumps({"kernels": [{
+        "name": "prep", "route": "cuda",
+        "source": "strugatzki_tpu_torch/csrc/prep.cu",
+        "replaces": "strugatzki_tpu/kernels/pallas_prep.py:39",
+        "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms}]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,80 @@
+"""The port stands apart from JAX: its slice runs without importing jax,
+and ``chip_smoke.py`` fails loudly where there is no CUDA card."""
+
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SLICE = textwrap.dedent("""
+    import os, pkgutil, sys, importlib
+    import numpy as np
+    import strugatzki_tpu_torch
+    from strugatzki_tpu_torch.cli import main
+    from strugatzki_tpu_torch.io import AIFF, AudioFileSpec, SampleFormat
+    from strugatzki_tpu_torch.io import audiofile as af
+
+    for m in pkgutil.walk_packages(strugatzki_tpu_torch.__path__,
+                                   "strugatzki_tpu_torch."):
+        if m.name != "strugatzki_tpu_torch.__main__":
+            importlib.import_module(m.name)
+    import chip_smoke  # noqa: F401
+
+    root = sys.argv[1]
+    snd, db = os.path.join(root, "snd"), os.path.join(root, "db")
+    os.makedirs(snd)
+    os.makedirs(db)
+    rng = np.random.default_rng(0)
+    spec = AudioFileSpec(AIFF, SampleFormat.INT16, 1, 44100.0)
+    src = (0.2 * rng.standard_normal(66150)).astype(np.float32)
+    for name in ("a", "b"):
+        x = (0.2 * rng.standard_normal(66150)).astype(np.float32)
+        x[22050:44100] = src[22050:44100]
+        af.write(os.path.join(snd, name + ".aif"), x[None], spec)
+    af.write(os.path.join(snd, "src.aif"), src[None], spec)
+    assert main(["-f", "-d", db, "--device", "cpu", snd]) == 0
+    assert main(["--stats", "-d", db]) == 0
+    assert main(["-c", "-d", db, "--in-start", "0.5", "--in-stop", "1.0",
+                 "--dur-min", "0.5", "--dur-max", "1.0", "-m", "2",
+                 "--device", "cpu", os.path.join(db, "src_feat.xml")]) == 0
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
+    assert not loaded, loaded
+    print("NO_JAX_OK")
+""")
+
+
+def _env(**extra):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(extra)
+    return env
+
+
+def test_port_slice_runs_without_jax(tmp_path):
+    r = subprocess.run([sys.executable, "-c", _SLICE, str(tmp_path)],
+                       capture_output=True, text=True, cwd=REPO, env=_env(),
+                       timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "NO_JAX_OK" in r.stdout
+    assert "Success." in r.stdout
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    no_card = _env(CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True,
+                       text=True, cwd=REPO, env=no_card, timeout=300)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+    assert "CUDA is not available" in r.stderr
+
+    # alone in a directory, without the package beside it
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True,
+                       text=True, cwd=tmp_path, env=env, timeout=300)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
