@@ -17,11 +17,31 @@ drives the README quick start through the port (``strugatzki_tpu_torch``):
    One database file holds the query's 20-30 s at ~40 s and its 45-50 s at
    ~55 s; the search must rank it first at exactly those frames.  One file's
    features and one chunk's traces are held against the CPU.
+5. database: the resident ``FeatureDatabase``.  The tie-stable top-k on the
+   card against the CPU; the planted-match canary through the four query
+   families with and without the spectra cache; a seeded 64-file database
+   on CUDA against the same database on the CPU (``query``,
+   ``query_punch``, mixed-length ``query_batch``, ``query_punch_batch``,
+   the exact re-rank, and the device re-rank against the host f64 oracle);
+   the prep kernel at the staging slab shape, timed; then the deployment
+   README.md's north star names: 10,000 two-minute files staged with the
+   spectra cache, a 10 s punch-in and a 5 s punch-out planted in one file,
+   which must rank first in ``query`` and ``query_punch`` (12-20 s) with
+   sim > 0.999.  It prints the staging time, the first and warm latencies
+   of the four query families and of the exact re-rank, the peak device
+   memory of staging and of the queries, and a profile of one warm
+   ``query`` and ``query_punch``; then it stages the same files without the
+   spectra cache and times ``query`` and ``query_punch`` again.
+
+Every phase that drives a path of the port sets the prep kernel's counters
+to 0 just before and reads them just after: the path must launch the kernel
+and never its plain version.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit from nvidia-smi, and the
-one before that the kernels' launch counts and times as JSON.  Any failed
-check raises: the script then exits non-zero and prints no result line.
+one before that the kernels' launch counts (summed over the paths driven)
+and times as JSON.  Any failed check raises: the script then exits non-zero
+and prints no result line.
 Without CUDA, or without the package beside it, it exits non-zero at once.
 """
 
@@ -406,6 +426,408 @@ def slice_phase(seed: int, card: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the resident FeatureDatabase
+# ---------------------------------------------------------------------------
+
+#: the serving deployment README.md and BASELINE.json's north star name
+#: ("correlate a punch against a 10k-file database"): two-minute files at
+#: hop 512, a 10 s punch-in, a 5 s punch-out, punch lengths 12-20 s
+SCALE_FILES = 10_000
+SCALE_FRAMES = 10_336           # num_output_frames(120 s · 44.1 kHz, 512)
+L_IN, L_OUT = 861, 431          # full_to_feat(10 s), full_to_feat(5 s)
+BAND = (1034, 1723)             # full_to_feat(12 s), full_to_feat(20 s)
+#: where the target file holds the query's punches (feature frames)
+PLANT_IN, PLANT_OUT = 2000, 3400
+Q_IN, Q_OUT = 1500, 4000        # the punches' frames in the query
+SIM_TOL, BOOST_RTOL, RERANK_TOL = 3e-5, 1e-4, 1e-5
+
+
+def counted(label: str, fn):
+    """Run ``fn`` with the prep counters set to 0 just before and read just
+    after; the path must have launched the kernel and never its plain
+    version.  Returns ``(fn's result, launches)``."""
+    from strugatzki_tpu_torch.kernels import prep
+
+    prep.KERNEL_LAUNCHES = 0
+    prep.REFERENCE_CALLS = 0
+    out = fn()
+    launches, refs = prep.KERNEL_LAUNCHES, prep.REFERENCE_CALLS
+    print(f"database: {label}: prep kernel launches {launches}, "
+          f"plain-version calls {refs}")
+    require(launches > 0, f"{label} never launched the prep kernel")
+    require(refs == 0, f"{label} reached the plain version on CUDA")
+    return out, launches
+
+
+def _decided(s, tol=SIM_TOL):
+    """Candidates whose rank in their file no sub-tolerance difference can
+    change: every other candidate of the row is more than ``tol`` away or
+    exactly tied with it (NaN with NaN)."""
+    s = np.asarray(s, np.float64)
+    a, b = s[:, :, None], s[:, None, :]
+    with np.errstate(invalid="ignore"):
+        ok = (np.abs(a - b) > tol) | (a == b) | (np.isnan(a) & np.isnan(b))
+    return ok.all(axis=2)
+
+
+def _same_result(got, want, what: str):
+    """A CUDA query or punch result against the CPU's: sims within
+    SIM_TOL (NaN and inf where the CPU has them), boosts within BOOST_RTOL
+    where they pass the max_boost gate of 8, frames (and punch lengths)
+    equal wherever the CPU's candidate is decided.  Returns the worst sim
+    and boost errors."""
+    gs, ws = np.asarray(got.sims), np.asarray(want.sims)
+    require(gs.shape == ws.shape, f"{what}: shapes {gs.shape} {ws.shape}")
+    for f in (np.isnan, np.isposinf, np.isneginf):
+        require((f(gs) == f(ws)).all(), f"{what}: {f.__name__} positions")
+    fin = np.isfinite(ws)
+    s_err = float(np.abs(gs[fin] - ws[fin]).max()) if fin.any() else 0.0
+    require(s_err <= SIM_TOL, f"{what}: sims differ by {s_err:.3e}")
+    dec = _decided(ws) & fin
+    pairs = [(got.frames, want.frames)]
+    if hasattr(want, "punch_lens"):
+        pairs.append((got.punch_lens, want.punch_lens))
+        boosts = [(got.boosts_in, want.boosts_in),
+                  (got.boosts_out, want.boosts_out)]
+    else:
+        boosts = [(got.boosts, want.boosts)]
+    for g, w in pairs:
+        require((np.asarray(g)[dec] == np.asarray(w)[dec]).all(),
+                f"{what}: frames differ where the CPU's sims are decided")
+    b_err = 0.0
+    for g, w in boosts:
+        g, w = np.asarray(g)[dec], np.asarray(w)[dec]
+        with np.errstate(invalid="ignore"):
+            ok = w <= 8.0
+            require(((g <= 8.0) == ok).all(), f"{what}: boost gate")
+        if ok.any():
+            b_err = max(b_err, float((np.abs(g[ok] - w[ok])
+                                      / np.abs(w[ok])).max()))
+    require(b_err <= BOOST_RTOL, f"{what}: boosts differ by {b_err:.3e}")
+    return s_err, b_err
+
+
+def _db_features(rng, n, frames):
+    """Feature-like rows: loudness in [0, 0.6], MFCC rows around 0.5."""
+    return [np.concatenate([rng.uniform(0.0, 0.6, (1, t)),
+                            rng.normal(0.5, 0.1, (13, t))]).astype(np.float32)
+            for t in frames[:n]]
+
+
+def topk_on_card() -> None:
+    """The tie-stable top-k on the card against the CPU on rows full of
+    exact ties, signed zeros, ±inf and NaN of both signs."""
+    import torch
+
+    from strugatzki_tpu_torch.parallel.database import _topk
+
+    rng = np.random.default_rng(5)
+    vals = np.array([0.0, -0.0, 0.5, -0.25, 1.0, np.inf, -np.inf, np.nan,
+                     -np.float32(np.nan)], np.float32)
+    x = rng.choice(vals, size=(64, 4096))
+    gv, gi = _topk(torch.as_tensor(x, device="cuda"), 100)
+    cv, ci = _topk(torch.as_tensor(x), 100)
+    require(torch.equal(gi.cpu(), ci), "top-k order on the card vs the CPU")
+    require(np.array_equal(gv.cpu().numpy(), cv.numpy(), equal_nan=True),
+            "top-k values on the card vs the CPU")
+    print("database: tie-stable top-k of [64, 4096] rows of ties, ±0, ±inf "
+          "and ±NaN: CUDA order equals the CPU's")
+
+
+def canary_phase() -> int:
+    from strugatzki_tpu_torch.parallel.canary import (format_report,
+                                                      run_batch_canary)
+
+    total = 0
+    for cache in (False, True):
+        report, n = counted(f"canary (cache_spectra={cache})",
+                            lambda: run_batch_canary(device="cuda",
+                                                     cache_spectra=cache))
+        print(f"database: cache_spectra={cache}: {format_report(report)}")
+        require(report["pass"], "canary FAIL")
+        total += n
+    return total
+
+
+def compare_phase(seed: int) -> int:
+    """One seeded 64-file database on CUDA and on the CPU; the same four
+    query families, and the device re-rank against the host f64 oracle."""
+    from strugatzki_tpu_torch.analysis.correlation import InputTemplate
+    from strugatzki_tpu_torch.parallel.database import FeatureDatabase
+
+    rng = np.random.default_rng(seed + 1)
+    frames = [1500 + 37 * i for i in range(64)]
+    feats = _db_features(rng, 64, frames)
+    # a planted pair 420 frames apart (file 7's own pair is 400 apart,
+    # outside the band)
+    feats[20][:, 300:420] = feats[7][:, 100:220]
+    feats[20][:, 720:780] = feats[7][:, 500:560]
+    entries = [(f"c{i:02d}.aif", f) for i, f in enumerate(feats)]
+    allf = np.concatenate(feats, axis=1)
+    norm = np.stack([allf.min(axis=1), allf.max(axis=1)], 1).astype(
+        np.float32)
+
+    def tmpl(i, a, b):
+        return InputTemplate.from_features(feats[i], norm, a, b)
+
+    t_in, t_out = tmpl(7, 100, 220), tmpl(7, 500, 560)
+    batch = [t_in, tmpl(3, 40, 160), tmpl(11, 900, 1000)]    # 120/120/100
+    pairs = [(t_in, t_out, 410, 450), (tmpl(2, 10, 110), tmpl(5, 30, 90),
+                                      200, 600)]
+
+    def run(db):
+        return (db.query(t_in, k=6), db.query_punch(t_in, t_out, 410, 450,
+                                                    k=4),
+                db.query_batch(batch, k=4), db.query_punch_batch(pairs, k=3),
+                db.query(t_in, k=6, exact_rerank=True),
+                db.query_punch(t_in, t_out, 410, 450, k=4,
+                               exact_rerank=True))
+
+    cpu = run(FeatureDatabase(entries, norm, device="cpu"))
+
+    def on_card():
+        db = FeatureDatabase(entries, norm, device="cuda")
+        return db, run(db)
+
+    (db, got), launches = counted("64-file database on CUDA", on_card)
+    names = ["query", "query_punch", "query_batch", "query_punch_batch",
+             "query exact_rerank", "query_punch exact_rerank"]
+    worst_s = worst_b = 0.0
+    for name, g, w in zip(names, got, cpu):
+        for q, (gr, wr) in enumerate(zip(g, w) if isinstance(g, list)
+                                     else [(g, w)]):
+            s, b = _same_result(gr, wr, f"{name}[{q}]")
+            worst_s, worst_b = max(worst_s, s), max(worst_b, b)
+    m = got[1].matches(512, 1)[0]
+    require(m.file == "c20.aif" and m.punch.start == 300 * 512
+            and m.punch.stop == 720 * 512, f"planted pair: {m}")
+    print(f"database: 64 files CUDA vs CPU, {', '.join(names)}: sims max "
+          f"|err| {worst_s:.3e} ({SIM_TOL}), boosts max rel err "
+          f"{worst_b:.3e} ({BOOST_RTOL}), frames equal where decided")
+
+    fin = np.argwhere(np.isfinite(got[0].sims))
+    fi, fr = fin[:, 0], got[0].frames[fin[:, 0], fin[:, 1]]
+    d_s, d_b = db._device_window_scores(fi, fr, t_in, 0.5, 8.0)
+    h_s, h_b = db._exact_window_scores(fi, fr, t_in, 0.5, 8.0)
+    e_s = float(np.abs(d_s - h_s).max())
+    e_b = float((np.abs(d_b - h_b) / np.abs(h_b)).max())
+    require(e_s <= RERANK_TOL and e_b <= RERANK_TOL,
+            f"device re-rank vs host oracle: {e_s:.3e}, {e_b:.3e}")
+    print(f"database: device re-rank of {len(fi)} windows vs the host f64 "
+          f"oracle: sims max |err| {e_s:.3e}, boosts max rel err {e_b:.3e} "
+          f"(both {RERANK_TOL})")
+    return launches
+
+
+def prep_slab_timing(card: str) -> None:
+    """The prep kernel against its plain version at the staging slab shape
+    of the scale database."""
+    import torch
+
+    from strugatzki_tpu_torch.kernels import prep
+    from strugatzki_tpu_torch.parallel.database import _QUERY_CHUNK
+
+    B, C, T = _QUERY_CHUNK, 14, 10752
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand((B, C, T), device="cuda", generator=g)
+    norm = torch.tensor([[0.0, 1.0]] * C, device="cuda")
+    lens = torch.full((B,), SCALE_FRAMES, dtype=torch.int32, device="cuda")
+    out_k, sh_k = prep.prepare_database_cuda(x, norm, lens, 1)
+    out_r, sh_r = prep.prepare_database_reference(x, norm, lens, 1)
+    err = float((out_k - out_r).abs().max())
+    require(err <= 1e-6, f"prep at [{B}, {C}, {T}] differs by {err:.3e}")
+    del out_k, out_r, sh_k, sh_r
+    runs = []
+    for kind in ("plain", "kernel", "kernel", "plain"):
+        fn = prep.prepare_database_cuda if kind == "kernel" \
+            else prep.prepare_database_reference
+        runs.append((kind, cuda_ms(lambda: fn(x, norm, lens, 1), 10)))
+    ms = sum(t for k, t in runs if k == "kernel") / 2
+    plain = sum(t for k, t in runs if k == "plain") / 2
+    print(f"database: prep at the staging slab [{B}, {C}, {T}]: max |err| "
+          f"{err:.3e}; kernel {ms:.3f} ms vs plain {plain:.3f} ms (runs "
+          f"{', '.join(f'{k} {t:.3f}' for k, t in runs)}) on {card}")
+    del x
+    torch.cuda.empty_cache()
+
+
+def _latency(fn, warm: int = 5):
+    """(first, median of ``warm`` more) wall seconds of ``fn``, whose
+    result is host arrays (so the device work is done when it returns)."""
+    t0 = time.perf_counter()
+    out = fn()
+    first = time.perf_counter() - t0
+    times = []
+    for _ in range(warm):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return out, first, float(np.median(times))
+
+
+def _profile(label: str, fn, card: str) -> None:
+    """Device time by kernel for one warm call, and the device's busy share
+    of its wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # the device's own events (kernels, copies); a CPU op's self device
+    # time repeats its kernels'
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == cuda and dev_us(e) > 0),
+                  key=dev_us, reverse=True)
+    require(rows, f"{label}: the profiler saw no device time")
+    busy = sum(dev_us(e) for e in rows) / 1e3
+    print(f"profile: {label}: wall {wall * 1e3:.3f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / 1e3 / wall:.1f}%) on {card}")
+    for e in rows[:12]:
+        print(f"profile: {label}:   {dev_us(e) / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+
+
+def scale_phase(seed: int, card: str) -> int:
+    """10,000 two-minute files staged with the spectra cache; the planted
+    file must come first in query and query_punch."""
+    import torch
+
+    from strugatzki_tpu_torch.analysis.correlation import InputTemplate
+    from strugatzki_tpu_torch.parallel.database import FeatureDatabase
+
+    rng = np.random.default_rng(seed + 2)
+    t0 = time.perf_counter()
+    feats = np.empty((SCALE_FILES, 14, SCALE_FRAMES), np.float32)
+    for o in range(0, SCALE_FILES, 500):
+        feats[o:o + 500] = rng.random((min(500, SCALE_FILES - o), 14,
+                                       SCALE_FRAMES), dtype=np.float32)
+    query = rng.random((14, SCALE_FRAMES), dtype=np.float32)
+    target = SCALE_FILES // 3
+    feats[target, :, PLANT_IN:PLANT_IN + L_IN] = query[:, Q_IN:Q_IN + L_IN]
+    feats[target, :, PLANT_OUT:PLANT_OUT + L_OUT] = \
+        query[:, Q_OUT:Q_OUT + L_OUT]
+    entries = [(f"s{i:05d}.aif", feats[i]) for i in range(SCALE_FILES)]
+    norm = np.stack([np.zeros(14), np.ones(14)], 1).astype(np.float32)
+    print(f"database: scale: {SCALE_FILES} files x [14, {SCALE_FRAMES}] "
+          f"f32 ({feats.nbytes / 1e9:.2f} GB) made in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def tmpl(a, n):
+        return InputTemplate.from_features(query, norm, a, a + n)
+
+    t_in, t_out = tmpl(Q_IN, L_IN), tmpl(Q_OUT, L_OUT)
+    t_batch = [t_in] + [tmpl(200 + 1000 * q, L_IN) for q in range(7)]
+    pairs = [(t_in, t_out) + BAND] + [
+        (tmpl(100 + 1100 * q, L_IN), tmpl(300 + 1100 * q, L_OUT)) + BAND
+        for q in range(7)]
+    calls = {
+        "query": lambda db: db.query(t_in, k=4),
+        "query_punch": lambda db: db.query_punch(t_in, t_out, *BAND, k=4),
+        "query_batch of 8": lambda db: db.query_batch(t_batch, k=4),
+        "query_punch_batch of 8": lambda db: db.query_punch_batch(pairs,
+                                                                  k=4),
+        "query exact_rerank": lambda db: db.query(t_in, k=4,
+                                                  exact_rerank=True)}
+
+    def stage_and_query(cache: bool, names):
+        """Stage, then time ``names``; peak device memory of each part."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        db = FeatureDatabase(entries, norm, cache_spectra=cache,
+                             device="cuda")
+        t_stage = time.perf_counter() - t0
+        peak_stage = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = {n: _latency(lambda: calls[n](db)) for n in names}
+        peak_query = torch.cuda.max_memory_allocated()
+        xs_gb = db._xs.numel() * 4 / 1e9
+        sp_gb = sum(x.numel() * 8 for x in db._spectra or ()) / 1e9
+        print(f"database: scale: staged {SCALE_FILES} files (rows "
+              f"{db._xs.shape[0]}, T {db._xs.shape[2]}) with "
+              f"cache_spectra={cache} in {t_stage:.3f} s: features "
+              f"{xs_gb:.2f} GB + spectra {sp_gb:.2f} GB resident on {card}")
+        for name, (_, first, warm) in res.items():
+            print(f"database: scale: cache_spectra={cache}: {name}: first "
+                  f"{first * 1e3:.3f} ms, warm median of 5 "
+                  f"{warm * 1e3:.3f} ms on {card}")
+        print(f"database: scale: cache_spectra={cache}: "
+              f"torch.cuda.max_memory_allocated {peak_stage / 1e9:.3f} GB "
+              f"while staging, {peak_query / 1e9:.3f} GB over the queries "
+              f"on {card}")
+        return db, res
+
+    (db, res), launches = counted("scale database, cache_spectra=True",
+                                  lambda: stage_and_query(True, calls))
+    q = res["query"][0]
+    m = q.matches(L_IN, STEP, 1)[0]
+    require(m.file == entries[target][0] and int(q.frames[target, 0])
+            == PLANT_IN and q.sims[target, 0] > 0.999,
+            f"query: top {m}, planted {entries[target][0]} at {PLANT_IN}")
+    p = res["query_punch"][0]
+    m = p.matches(STEP, 1)[0]
+    require(m.file == entries[target][0] and int(p.frames[target, 0])
+            == PLANT_IN and BAND[0] + int(p.punch_lens[target, 0])
+            == PLANT_OUT - PLANT_IN and p.sims[target, 0] > 0.999,
+            f"query_punch: top {m}, planted at {PLANT_IN}-{PLANT_OUT}")
+    for r in res["query_batch of 8"][0] + res["query_punch_batch of 8"][0]:
+        require(r.sims.shape == (SCALE_FILES, 4), "batch result shape")
+        fin = r.sims[np.isfinite(r.sims)]
+        require(fin.size and (np.abs(fin) <= 1.0 + 1e-5).all(),
+                "batch sims out of range")
+    require(res["query_batch of 8"][0][0].frames[target, 0] == PLANT_IN
+            and res["query_punch_batch of 8"][0][0].frames[target, 0]
+            == PLANT_IN, "batches lost the planted hit")
+    print(f"database: scale: planted {entries[target][0]} first in query "
+          f"(frame {PLANT_IN}, sim {q.sims[target, 0]:.7f}) and query_punch "
+          f"(frames {PLANT_IN}-{PLANT_OUT}, sim {p.sims[target, 0]:.7f})")
+
+    _profile("warm query", lambda: db.query(t_in, k=4), card)
+    _profile("warm query_punch",
+             lambda: db.query_punch(t_in, t_out, *BAND, k=4), card)
+    del db
+
+    # the same database without the spectra cache: each query computes
+    # every file's forward spectra again
+    (db, res2), n = counted(
+        "scale database, cache_spectra=False",
+        lambda: stage_and_query(False, ["query", "query_punch"]))
+    launches += n
+    for name, (got, _, _) in res2.items():
+        want = res[name][0]
+        require(np.array_equal(got.frames[target], want.frames[target])
+                and np.abs(got.sims[target] - want.sims[target]).max()
+                <= SIM_TOL, f"{name} without the cache differs at the "
+                "planted file")
+    del db, entries, feats
+    torch.cuda.empty_cache()
+    return launches
+
+
+def database_phase(seed: int, card: str) -> int:
+    """Every check of the resident database; returns the prep launches of
+    the paths it drove."""
+    topk_on_card()
+    launches = canary_phase()
+    launches += compare_phase(seed)
+    prep_slab_timing(card)
+    launches += scale_phase(seed, card)
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -448,6 +870,7 @@ def main(argv=None) -> int:
 
     err, ms, plain_ms = kernel_phase(args.seed, card)
     launches = slice_phase(args.seed, card)
+    launches += database_phase(args.seed, card)
 
     print(json.dumps({"kernels": [{
         "name": "prep", "route": "cuda",

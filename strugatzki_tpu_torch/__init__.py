@@ -2,7 +2,8 @@
 
 The port runs the README's quick-start path on a :class:`torch.device`:
 feature extraction (``-f``), database statistics (``--stats``) and the
-punch-in/punch-out correlation search (``-c``).  The database preparation
+punch-in/punch-out correlation search (``-c``), and the resident
+``FeatureDatabase`` serving layer.  The database preparation
 kernel is hand-written CUDA for Hopper (``csrc/prep.cu``); the rest is plain
 PyTorch.  Configs, XML sidecars, feature files and match selection are the
 JAX package's own host-only modules, so both packages read and write the
@@ -22,6 +23,7 @@ __all__ = [
     "ExtractionConfig", "CorrelationConfig",
     "Aborted", "Processor", "Progress", "Result",
     "FeatureExtraction", "FeatureCorrelation", "FeatureStats",
+    "FeatureDatabase",
     "extract_features", "prepare_database",
 ]
 
@@ -38,6 +40,9 @@ def __getattr__(name):
     if name == "FeatureStats":
         from .analysis.feature_stats import FeatureStats
         return FeatureStats
+    if name == "FeatureDatabase":
+        from .parallel.database import FeatureDatabase
+        return FeatureDatabase
     if name == "extract_features":
         from .dsp.frontend import extract_features
         return extract_features

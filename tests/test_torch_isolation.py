@@ -1,5 +1,7 @@
-"""The port stands apart from JAX: its slice runs without importing jax,
-and ``chip_smoke.py`` fails loudly where there is no CUDA card."""
+"""The port stands apart from JAX: its slice (``-f``, ``--stats``, ``-c``,
+and a resident ``FeatureDatabase`` queried, saved and loaded) runs without
+importing jax, and ``chip_smoke.py`` fails loudly where there is no CUDA
+card."""
 
 import os
 import shutil
@@ -40,6 +42,24 @@ _SLICE = textwrap.dedent("""
     assert main(["-c", "-d", db, "--in-start", "0.5", "--in-stop", "1.0",
                  "--dur-min", "0.5", "--dur-max", "1.0", "-m", "2",
                  "--device", "cpu", os.path.join(db, "src_feat.xml")]) == 0
+
+    from strugatzki_tpu_torch import FeatureDatabase
+    from strugatzki_tpu_torch.analysis.correlation import InputTemplate
+    fdb = FeatureDatabase.from_folder(db, device="cpu")
+    feats, _ = af.read(os.path.join(db, "src_feat.aif"))
+    t_in = InputTemplate.from_features(feats, fdb.norm, 43, 86)
+    t_out = InputTemplate.from_features(feats, fdb.norm, 100, 120)
+    res = fdb.query(t_in, k=2)
+    top = res.matches(43, 512, 3)
+    assert [m.punch.start for m in top] == [43 * 512] * 3, top
+    assert top[0].file.endswith("src.aif") and top[0].sim > 0.999, top
+    pres = fdb.query_punch(t_in, t_out, 20, 60, k=2)
+    assert pres.sims.shape == (3, 2)
+    path = os.path.join(root, "fdb.npz")
+    fdb.save(path)
+    back = FeatureDatabase.load(path, device="cpu")
+    assert back.files == fdb.files
+    assert (back.query(t_in, k=2).frames == res.frames).all()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     assert not loaded, loaded
     print("NO_JAX_OK")
