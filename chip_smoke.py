@@ -32,10 +32,26 @@ drives the README quick start through the port (``strugatzki_tpu_torch``):
    memory of staging and of the queries, and a profile of one warm
    ``query`` and ``query_punch``; then it stages the same files without the
    spectra cache and times ``query`` and ``query_punch`` again.
+6. analyses: BASELINE.json's segmentation and self-similarity configs and a
+   cross-similarity, written from the seed as PCM16 and run through ``-f``,
+   ``--stats`` and the three factories on CUDA.  ``-s`` on a 5-minute
+   recording of five timbres (boundaries at 60/120/180/240 s, a stretch of
+   digital silence), corrLen 44100, 20 breaks: the novelty curve and the
+   breaks against the CPU, a break near every boundary.  ``-x`` on a
+   3-minute piece in which a 30 s passage recurs, corrLen 44100, at
+   decimation 1 (the streamed PNG) and 2 (in memory), psycho and gray
+   inverted: 8 sampled block pairs against the CPU, the recurrence above
+   0.999, the device raster bit-equal to the host quantization of the same
+   sims (FMA tie cases included), every PNG decoded to its extent.  ``-y``
+   of the piece against a 20 s excerpt of itself: the trace against the
+   CPU, its length, rate and peak.  It prints each analysis's first and
+   warm wall time, the peak device memory, and for ``-x`` a profile of the
+   device time beside the host's colorize and deflate.
 
 Every phase that drives a path of the port sets the prep kernel's counters
-to 0 just before and reads them just after: the path must launch the kernel
-and never its plain version.
+to 0 just before and reads them just after: the slice and the database must
+launch the kernel and never its plain version; the analyses (``-s``, ``-x``,
+``-y``) prepare on the host and must not reach the plain version.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit from nvidia-smi, and the
@@ -666,13 +682,14 @@ def _latency(fn, warm: int = 5):
     return out, first, float(np.median(times))
 
 
-def _profile(label: str, fn, card: str) -> None:
-    """Device time by kernel for one warm call, and the device's busy share
-    of its wall time."""
+def _profile(label: str, fn, card: str, warmup: bool = True) -> None:
+    """Device time by kernel for one warm call (``warmup``: after one
+    unprofiled call), and the device's busy share of its wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -828,6 +845,413 @@ def database_phase(seed: int, card: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: segmentation, self-similarity and cross-similarity
+# ---------------------------------------------------------------------------
+
+#: BASELINE.json's "FeatureSegmentation: novelty break detection on 5-min
+#: recording (corrLen 44100, 20 breaks)": five sections of distinct timbres
+#: with frame-aligned boundaries, and digital silence inside one section.
+#: The silence is shorter than the 2 s window: a window inside a longer
+#: silence is 0/0 and carries FFT round-off that differs between devices
+#: (PERF.md, Findings)
+SEG_SECONDS = 300
+SEG_BOUNDS = (60, 120, 180, 240)
+SILENCE = (150.0, 151.5)
+SEG_BREAKS = 20
+CORR_LEN = 44100
+#: BASELINE.json's "SelfSimilarity: full self-similarity matrix image of a
+#: 3-min piece with decimation": a 30 s passage recurs sample for sample
+#: RECUR_SHIFT frames (~90 s) later
+SELF_SECONDS = 180
+RECUR = (20.0, 50.0)
+RECUR_SHIFT = 7752
+#: the -y template: a 20 s excerpt of the piece (frame-aligned, away from
+#: the recurring passage)
+EXCERPT_AT, EXCERPT_FRAMES = 12_900, 1723
+NOVELTY_TOL, GRAM_TOL, CROSS_TOL = 2e-5, 2e-5, 3e-5
+
+
+def _aligned(sec: float) -> int:
+    """The frame-aligned sample position nearest ``sec``."""
+    return int(round(sec * SR / STEP)) * STEP
+
+
+def _band_noise(rng, n: int, lo: float, hi: float) -> np.ndarray:
+    spec = np.fft.rfft(rng.standard_normal(n))
+    f = np.fft.rfftfreq(n, 1.0 / SR)
+    spec[(f < lo) | (f >= hi)] = 0.0
+    return np.fft.irfft(spec, n=n)
+
+
+def _section(rng, n: int, kind: int, level: float) -> np.ndarray:
+    """One of five timbres at ``level``, under a random 1-8 Hz envelope so
+    the loudness row moves without a trend: low rumble, a harmonic tone
+    with vibrato, bright noise, a sine chord over faint noise, a 2 kHz
+    noise band."""
+    t = np.arange(n) / SR
+    if kind == 0:
+        x = _band_noise(rng, n, 40.0, 400.0)
+    elif kind == 1:
+        ph = 2 * np.pi * 220.0 * t + 3.0 * np.sin(2 * np.pi * 5.0 * t)
+        x = sum(np.sin(k * ph) / k for k in range(1, 7))
+    elif kind == 2:
+        x = _band_noise(rng, n, 4000.0, 16000.0)
+    elif kind == 3:
+        x = sum(np.sin(2 * np.pi * f * t) for f in (330.0, 415.0, 495.0))
+        x = x + 0.05 * rng.standard_normal(n)
+    else:
+        x = _band_noise(rng, n, 1500.0, 2500.0)
+    env = _band_noise(rng, n, 1.0, 8.0)
+    env = 0.7 + 0.3 * env / np.abs(env).max()
+    return level * env * x / np.abs(x).max()
+
+
+#: section levels: every boundary is also a loudness step
+SEG_LEVELS = (0.2, 0.55, 0.15, 0.45, 0.3)
+
+
+def write_analysis_sounds(snd: str, seed: int) -> None:
+    """``seg.aif`` (the segmentation recording), ``piece.aif`` (the
+    self-similarity piece) and ``excerpt.aif`` (its -y template), PCM16
+    mono at 44.1 kHz."""
+    from strugatzki_tpu_torch.io import AIFF, AudioFileSpec, SampleFormat
+    from strugatzki_tpu_torch.io import audiofile as af
+
+    rng = np.random.default_rng(seed + 3)
+    spec = AudioFileSpec(AIFF, SampleFormat.INT16, 1, float(SR))
+    cuts = [0] + [_aligned(s) for s in SEG_BOUNDS] + [_aligned(SEG_SECONDS)]
+    seg = np.concatenate([_section(rng, b - a, k, SEG_LEVELS[k])
+                          for k, (a, b) in enumerate(zip(cuts, cuts[1:]))])
+    seg[_aligned(SILENCE[0]):_aligned(SILENCE[1])] = 0.0
+    af.write(os.path.join(snd, "seg.aif"), seg[None].astype(np.float32), spec)
+
+    piece = _sound(rng, SELF_SECONDS)
+    a, b = _aligned(RECUR[0]), _aligned(RECUR[1])
+    d = RECUR_SHIFT * STEP
+    piece[a + d:b + d] = piece[a:b]
+    af.write(os.path.join(snd, "piece.aif"), piece[None], spec)
+    ex = piece[EXCERPT_AT * STEP:(EXCERPT_AT + EXCERPT_FRAMES) * STEP]
+    af.write(os.path.join(snd, "excerpt.aif"), ex[None], spec)
+
+
+def _peak_gb() -> float:
+    import torch
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _fresh_peak() -> None:
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def segmentation_checks(db: str, card: str, dev: str = "cuda") -> None:
+    """``-s`` through the factory on ``dev`` and on the CPU: the novelty
+    curve, the breaks, and the planted boundaries."""
+    import torch
+
+    from strugatzki_tpu_torch import FeatureSegmentation, SegmentationConfig
+    from strugatzki_tpu_torch.analysis.segmentation import _novelty_prep
+    from strugatzki_tpu_torch.io import audiofile as af
+    from strugatzki_tpu_torch.kernels import corr as K
+
+    cfg = SegmentationConfig(database_folder=db,
+                             meta_input=os.path.join(db, "seg_feat.xml"),
+                             corr_len=CORR_LEN, temporal_weight=TEMP_WEIGHT,
+                             num_breaks=SEG_BREAKS)
+    _fresh_peak()
+    FeatureSegmentation.device = dev
+    breaks, first, warm = _latency(
+        lambda: FeatureSegmentation.run(cfg).result(), warm=3)
+    peak = _peak_gb()
+    FeatureSegmentation.device = "cpu"
+    want = FeatureSegmentation.run(cfg).result()
+    FeatureSegmentation.device = dev
+
+    feats, _ = af.read(os.path.join(db, "seg_feat.aif"))
+    norm, _ = af.read(os.path.join(db, "feat_norms.aif"))
+    xs, nw, _, h = _novelty_prep(feats, norm, STEP, cfg.build())
+    curves = [K.novelty_trace(torch.as_tensor(xs, device=d), h,
+                              TEMP_WEIGHT)[:nw].cpu().numpy()
+              for d in (dev, "cpu")]
+    require(all(np.isfinite(c).all() for c in curves),
+            "novelty curve not finite")
+    err = float(np.abs(curves[0] - curves[1]).max())
+    require(err <= NOVELTY_TOL, f"novelty CUDA vs CPU {err:.3e}")
+    require(len(breaks) == len(want) == SEG_BREAKS,
+            f"{len(breaks)} / {len(want)} breaks")
+    require([b.pos for b in breaks] == [b.pos for b in want],
+            "break positions CUDA vs CPU")
+    b_err = max(abs(a.sim - b.sim) for a, b in zip(breaks, want))
+    require(b_err <= NOVELTY_TOL, f"break sims CUDA vs CPU {b_err:.3e}")
+    found = []
+    for s in SEG_BOUNDS:
+        near = [b for b in breaks if abs(b.pos - _aligned(s)) <= CORR_LEN // 2]
+        require(near, f"no break within {CORR_LEN // 2} samples of {s} s")
+        found.append(min(near, key=lambda b: abs(b.pos - _aligned(s))))
+    print(f"analyses: -s {feats.shape[1]} frames, corrLen {CORR_LEN} (half "
+          f"window {h}), {SEG_BREAKS} breaks: novelty curve [{nw}] CUDA vs "
+          f"CPU max |err| {err:.3e} ({NOVELTY_TOL}), breaks equal position "
+          f"for position, sims max |err| {b_err:.3e}; planted boundaries "
+          + ", ".join(f"{s} s → {b.pos} (sim {b.sim:.4f})"
+                      for s, b in zip(SEG_BOUNDS, found)))
+    print(f"analyses: -s wall first {first:.3f} s, warm median of 3 "
+          f"{warm:.3f} s; peak device memory {peak:.3f} GB on {card}")
+
+
+def _png_rows(path: str, rows=()):
+    """Stream-decode an 8-bit RGB PNG of filter-0 scanlines: ``(width,
+    height, {row: [width, 3] pixels})`` for the asked rows; raises unless
+    the data holds exactly ``height`` scanlines."""
+    import struct
+    import zlib
+
+    z = zlib.decompressobj()
+    got, seen, w, h = {}, 0, None, None
+
+    def take(out: bytes) -> None:
+        nonlocal seen
+        stride = 1 + 3 * w
+        for r in rows:
+            lo, hi = max(r * stride, seen), min((r + 1) * stride,
+                                                seen + len(out))
+            if lo < hi:
+                got.setdefault(r, bytearray()).extend(
+                    out[lo - seen:hi - seen])
+        seen += len(out)
+
+    with open(path, "rb") as f:
+        require(f.read(8) == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+        while True:
+            n, tag = struct.unpack(">I4s", f.read(8))
+            body = f.read(n)
+            f.read(4)
+            if tag == b"IHDR":
+                w, h = struct.unpack(">II", body[:8])
+            elif tag == b"IDAT":
+                take(z.decompress(body))
+            elif tag == b"IEND":
+                break
+    take(z.flush())
+    require(seen == h * (1 + 3 * w), f"{path}: {seen} bytes of scanlines")
+    return w, h, {r: np.frombuffer(bytes(v), np.uint8)[1:].reshape(w, 3)
+                  for r, v in got.items()}
+
+
+def _prepared_piece(db: str):
+    """The piece's features as the self-similarity factory prepares them."""
+    from strugatzki_tpu_torch.analysis.self_similarity import _joint_shifted
+    from strugatzki_tpu_torch.io import audiofile as af
+
+    feats, _ = af.read(os.path.join(db, "piece_feat.aif"))
+    norm, _ = af.read(os.path.join(db, "feat_norms.aif"))
+    return _joint_shifted(feats, feats, norm, 0, feats.shape[1])[0]
+
+
+def selfsim_pair_checks(x: np.ndarray, h: int, dev: str):
+    """Eight block pairs at decimation 1 (diagonal blocks, the planted
+    recurrence, far corners) on ``dev`` and on the CPU; the device raster
+    of those sims against their host quantization, and the FMA tie
+    datasets on ``dev``.  Returns the recurrence cell and its sim."""
+    import torch
+
+    from strugatzki_tpu_torch.analysis import self_similarity as SS
+
+    n, nb, res, _ = SS._prep_resident(x, x, h, 1, device=dev)
+    i = _aligned(sum(RECUR) / 2) // STEP      # mid-passage
+    j = i + RECUR_SHIFT
+    rec = (i // SS._BLOCK, j // SS._BLOCK)
+    pairs = list(dict.fromkeys([(0, 0), rec, (rec[0], rec[0]),
+                                (rec[1], rec[1]), (nb - 1, nb - 1),
+                                (0, nb - 1), (3, nb // 2), (nb // 3, nb - 2)]))
+    require(len(pairs) == 8, f"sampled pairs {pairs}")
+    _, _, res_c, _ = SS._prep_resident(x, x, h, 1, device="cpu")
+    sims_d = SS._dispatch_pairs_fast(res, res, pairs, TEMP_WEIGHT)
+    got = sims_d.cpu().numpy()
+    want = SS._dispatch_pairs_fast(res_c, res_c, pairs, TEMP_WEIGHT).numpy()
+    require(np.isfinite(got).all() and np.isfinite(want).all(),
+            "gram sims not finite")
+    err = float(np.abs(got - want).max())
+    require(err <= GRAM_TOL, f"gram CUDA vs CPU {err:.3e}")
+    rec_sim = float(got[pairs.index(rec)][i % SS._BLOCK, j % SS._BLOCK])
+    require(rec_sim > 0.999, f"recurrence sim {rec_sim}")
+    print(f"analyses: -x extent {n} ({nb} blocks): {len(pairs)} block pairs "
+          f"{pairs} CUDA vs CPU max |err| {err:.3e} ({GRAM_TOL}); planted "
+          f"recurrence cell ({i}, {j}) sim {rec_sim:.7f}")
+
+    rng = np.random.default_rng(0)
+    ties = [np.random.default_rng(s).uniform(-0.5, 1.6, (64, 64)).astype(
+        np.float32) for s in (49, 145, 184, 206)]
+    edge = rng.uniform(-0.5, 1.6, (64, 64)).astype(np.float32)
+    edge[0, :9] = [np.nan, np.inf, -np.inf, 0.0, 1.0, 0.5, 511.5 / 1023.0,
+                   0.25, np.float32(0.49369505)]
+    cases = [(sims_d, got, c, 1.0, inv) for c, inv in (("psycho", False),
+                                                       ("gray", True))]
+    cases += [(torch.as_tensor(t, device=dev), t, "psycho", 1.3, True)
+              for t in ties]
+    cases += [(torch.as_tensor(edge, device=dev), edge, c, ceil, inv)
+              for c in ("psycho", "gray") for ceil in (1.0, 0.8, 1.3)
+              for inv in (False, True)]
+    for sims_dev, sims_host, colors, ceil, inv in cases:
+        pix = SS._device_pix(colors, 1.0, ceil, inv)
+        vals = SS._apply_pix_stages(sims_dev, pix).cpu().numpy()
+        vals = vals.astype(np.uint8 if pix[2] else np.uint16)
+        require(np.array_equal(SS._pix_to_rgb(vals, pix[2]),
+                               SS._colorize(sims_host, colors, 1.0, ceil,
+                                            inv)),
+                f"device raster ({colors}, ceil {ceil}, inv {inv}) differs "
+                "from the host quantization")
+    print(f"analyses: -x device raster bit-equal to the host quantization of "
+          f"the same {dev} sims: the 8 pairs (psycho; gray inverted), the 4 "
+          f"FMA tie datasets (psycho, ceil 1.3, inverted), and NaN/±inf/"
+          f"bin-edge values ({len(cases) - 6} more cases)")
+    return n, i, j, rec_sim
+
+
+def selfsim_checks(db: str, out: str, card: str, dev: str = "cuda") -> None:
+    """``-x`` through the factory on ``dev`` at decimation 1 (the streamed
+    PNG) and 2 (in memory), psycho palette and gray inverted; then the
+    sampled block pairs."""
+    from strugatzki_tpu_torch import SelfSimilarity, SelfSimilarityConfig
+    from strugatzki_tpu_torch.analysis import self_similarity as SS
+
+    SelfSimilarity.device = dev
+    meta = os.path.join(db, "piece_feat.xml")
+    h = (CORR_LEN + STEP // 2) // STEP
+
+    def run(decim, colors="psycho", inv=False, name=None):
+        path = os.path.join(out, name or f"self_d{decim}_{colors}.png")
+        cfg = SelfSimilarityConfig(database_folder=db, meta_input=meta,
+                                   image_output=path, corr_len=CORR_LEN,
+                                   decimation=decim, colors=colors,
+                                   color_inv=inv)
+        return lambda: (SelfSimilarity.run(cfg).result(), path)[1]
+
+    x = _prepared_piece(db)
+    n, i, j, rec_sim = selfsim_pair_checks(x, h, dev)
+    require(n > SS._STREAM_EXTENT, f"extent {n} takes the in-memory path")
+
+    _fresh_peak()
+    p1, first, warm = _latency(run(1), warm=1)
+    peak = _peak_gb()
+    timing = io.StringIO()
+    os.environ["STRUGATZKI_RENDER_TIMING"] = "1"
+    try:
+        with contextlib.redirect_stderr(timing):
+            _profile(f"-x decimation 1 (extent {n}, streamed PNG, deflate "
+                     "level 6)", run(1, name="self_profiled.png"), card,
+                     warmup=False)
+    finally:
+        del os.environ["STRUGATZKI_RENDER_TIMING"]
+    w, hh, rows = _png_rows(p1, (n - 1 - j,))
+    require((w, hh) == (n, n), f"{p1}: {w}x{hh}, extent {n}")
+    want = SS._colorize(np.float32([[rec_sim]]), "psycho", 1.0, 1.0, False)
+    require(np.array_equal(rows[n - 1 - j][i], want[0, 0]),
+            "the PNG's recurrence pixel is not the colorized sim")
+    print(f"analyses: -x decimation 1: {os.path.getsize(p1)} B PNG of "
+          f"{n} x {n}; wall first {first:.3f} s, warm {warm:.3f} s; peak "
+          f"device memory {peak:.3f} GB on {card}")
+    for line in timing.getvalue().splitlines():
+        if line.startswith("render timing"):
+            print(f"analyses: -x decimation 1 (profiled run): {line}")
+
+    n2 = n // 2
+    i2 = i // 2
+    top_colors = SS._pix_to_rgb(np.uint16([1022, 1023]), False)
+    for decim, colors, inv, top in ((2, "psycho", False, top_colors),
+                                    (2, "gray", True, np.zeros((1, 3)))):
+        _fresh_peak()
+        if colors == "psycho":
+            path, first, warm = _latency(run(decim, colors, inv), warm=1)
+        else:
+            t0 = time.perf_counter()
+            path = run(decim, colors, inv, name="self_d2_gray_inv.png")()
+            first = warm = time.perf_counter() - t0
+        peak = _peak_gb()
+        j2 = i2 + RECUR_SHIFT // 2
+        w, hh, rows = _png_rows(path, (n2 - 1 - j2,))
+        require((w, hh) == (n2, n2), f"{path}: {w}x{hh}, extent {n2}")
+        px = rows[n2 - 1 - j2][i2]
+        require((np.asarray(top) == px).all(axis=-1).any(),
+                f"{path}: recurrence pixel {px}")
+        print(f"analyses: -x decimation {decim} {colors}"
+              f"{' inverted' if inv else ''}: {os.path.getsize(path)} B PNG "
+              f"of {n2} x {n2}, recurrence pixel {px.tolist()}; wall first "
+              f"{first:.3f} s, warm {warm:.3f} s; peak device memory "
+              f"{peak:.3f} GB on {card}")
+
+
+def cross_checks(db: str, out: str, card: str, dev: str = "cuda") -> None:
+    """``-y``: the piece (input 1, the longer) against its excerpt, on
+    ``dev`` and on the CPU."""
+    from strugatzki_tpu_torch import CrossSimilarity, CrossSimilarityConfig
+    from strugatzki_tpu_torch.io import audiofile as af
+
+    def run(device):
+        path = os.path.join(out, f"cross_{device}.aif")
+        cfg = CrossSimilarityConfig(
+            database_folder=db,
+            meta_input1=os.path.join(db, "piece_feat.xml"),
+            meta_input2=os.path.join(db, "excerpt_feat.xml"))
+        cfg.set_audio_output(path)
+        CrossSimilarity.device = device
+        CrossSimilarity.run(cfg).result()
+        return af.read(path)
+
+    _fresh_peak()
+    (got, spec), first, warm = _latency(lambda: run(dev), warm=3)
+    peak = _peak_gb()
+    want, _ = run("cpu")
+    CrossSimilarity.device = dev
+    len1 = af.read_spec(os.path.join(db, "piece_feat.aif")).num_frames
+    len2 = af.read_spec(os.path.join(db, "excerpt_feat.aif"))
+    rate1 = af.read_spec(os.path.join(db, "piece_feat.aif")).sample_rate
+    require(spec.num_frames == len1 - len2.num_frames + 1,
+            f"-y length {spec.num_frames}")
+    require(spec.sample_rate == rate1, f"-y rate {spec.sample_rate}")
+    err = float(np.abs(got - want).max())
+    require(err <= CROSS_TOL, f"-y CUDA vs CPU {err:.3e}")
+    peak_at = int(np.argmax(got[0]))
+    require(peak_at == EXCERPT_AT and got[0, peak_at] > 0.999,
+            f"-y peak {peak_at} sim {got[0, peak_at]}")
+    print(f"analyses: -y [{spec.num_frames}] = {len1} - {len2.num_frames} + "
+          f"1 at {spec.sample_rate:.4f} Hz (input 1's rate): CUDA vs CPU max "
+          f"|err| {err:.3e} ({CROSS_TOL}); peak at frame {peak_at} (planted "
+          f"{EXCERPT_AT}) sim {got[0, peak_at]:.7f}")
+    print(f"analyses: -y wall first {first:.3f} s, warm median of 3 "
+          f"{warm:.3f} s; peak device memory {peak:.3f} GB on {card}")
+
+
+def analyses_phase(seed: int, card: str, dev: str = "cuda") -> None:
+    """-f and --stats on the analysis sounds, then -s, -x and -y through
+    their factories."""
+    from strugatzki_tpu_torch.cli import main as cli
+    from strugatzki_tpu_torch.kernels import prep
+
+    with tempfile.TemporaryDirectory(prefix="strugatzki_analyses_") as tmp:
+        snd, db = os.path.join(tmp, "snd"), os.path.join(tmp, "db")
+        os.makedirs(snd)
+        os.makedirs(db)
+        write_analysis_sounds(snd, seed)
+        prep.KERNEL_LAUNCHES = 0
+        prep.REFERENCE_CALLS = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            require(cli(["-f", "-d", db, "--device", dev, snd]) == 0,
+                    f"-f:\n{out.getvalue()}")
+            require(cli(["--stats", "-d", db]) == 0,
+                    f"--stats:\n{out.getvalue()}")
+        segmentation_checks(db, card, dev)
+        selfsim_checks(db, tmp, card, dev)
+        cross_checks(db, tmp, card, dev)
+        print(f"analyses: prep kernel launches {prep.KERNEL_LAUNCHES}, "
+              f"plain-version calls {prep.REFERENCE_CALLS} (-s, -x and -y "
+              "prepare on the host)")
+        require(prep.REFERENCE_CALLS == 0,
+                "the analyses reached the plain prep version")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -871,6 +1295,7 @@ def main(argv=None) -> int:
     err, ms, plain_ms = kernel_phase(args.seed, card)
     launches = slice_phase(args.seed, card)
     launches += database_phase(args.seed, card)
+    analyses_phase(args.seed, card)
 
     print(json.dumps({"kernels": [{
         "name": "prep", "route": "cuda",

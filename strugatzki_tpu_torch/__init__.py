@@ -1,28 +1,35 @@
 """strugatzki_tpu_torch — the PyTorch/CUDA port of strugatzki_tpu.
 
-The port runs the README's quick-start path on a :class:`torch.device`:
-feature extraction (``-f``), database statistics (``--stats``) and the
-punch-in/punch-out correlation search (``-c``), and the resident
-``FeatureDatabase`` serving layer.  The database preparation
-kernel is hand-written CUDA for Hopper (``csrc/prep.cu``); the rest is plain
-PyTorch.  Configs, XML sidecars, feature files and match selection are the
-JAX package's own host-only modules, so both packages read and write the
+The port runs the six analyses on a :class:`torch.device`: feature
+extraction (``-f``), database statistics (``--stats``), the
+punch-in/punch-out correlation search (``-c``), novelty segmentation
+(``-s``), the self-similarity image (``-x``) and the cross-similarity vector
+(``-y``), plus the resident ``FeatureDatabase`` serving layer, all on one
+device.  The database preparation kernel is hand-written CUDA for Hopper
+(``csrc/prep.cu``); the rest is plain PyTorch.  Configs, XML sidecars,
+feature files and the host selection replays are the JAX package's own
+host-only modules or verbatim copies, so both packages read and write the
 same artifacts.  The package imports torch, never jax.
 """
 
-from strugatzki_tpu.config import (NORMALIZE_NAME, ChannelsBehavior,
-                                   CorrelationConfig, ExtractionConfig, Match,
-                                   Punch)
+from strugatzki_tpu.config import (NORMALIZE_NAME, Break, ChannelsBehavior,
+                                   ColorScheme, CorrelationConfig,
+                                   CrossSimilarityConfig, ExtractionConfig,
+                                   Match, Punch, SegmentationConfig,
+                                   SelfSimilarityConfig)
 from strugatzki_tpu.runtime.processor import Aborted, Processor, Progress, Result
 from strugatzki_tpu.span import Span
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "NORMALIZE_NAME", "Span", "Punch", "Match", "ChannelsBehavior",
-    "ExtractionConfig", "CorrelationConfig",
+    "NORMALIZE_NAME", "Span", "Punch", "Match", "Break",
+    "ChannelsBehavior", "ColorScheme",
+    "ExtractionConfig", "CorrelationConfig", "SegmentationConfig",
+    "SelfSimilarityConfig", "CrossSimilarityConfig",
     "Aborted", "Processor", "Progress", "Result",
-    "FeatureExtraction", "FeatureCorrelation", "FeatureStats",
+    "FeatureExtraction", "FeatureCorrelation", "FeatureSegmentation",
+    "SelfSimilarity", "CrossSimilarity", "FeatureStats",
     "FeatureDatabase",
     "extract_features", "prepare_database",
 ]
@@ -37,6 +44,15 @@ def __getattr__(name):
     if name == "FeatureCorrelation":
         from .analysis.correlation import FeatureCorrelation
         return FeatureCorrelation
+    if name == "FeatureSegmentation":
+        from .analysis.segmentation import FeatureSegmentation
+        return FeatureSegmentation
+    if name == "SelfSimilarity":
+        from .analysis.self_similarity import SelfSimilarity
+        return SelfSimilarity
+    if name == "CrossSimilarity":
+        from .analysis.cross_similarity import CrossSimilarity
+        return CrossSimilarity
     if name == "FeatureStats":
         from .analysis.feature_stats import FeatureStats
         return FeatureStats

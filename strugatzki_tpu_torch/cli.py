@@ -1,14 +1,18 @@
 """Command-line interface of the PyTorch port.
 
-The same switches and transcript as ``strugatzki_tpu.cli`` (whose parser
-helpers and formatting it reuses), for the ported slice:
+The same switches and transcripts as ``strugatzki_tpu.cli`` (whose parser
+helpers and formatting it reuses):
 
     python -m strugatzki_tpu_torch.cli -f [--device D] [-d dir] inputs...
     python -m strugatzki_tpu_torch.cli --stats -d dir
     python -m strugatzki_tpu_torch.cli -c [--device D] ... input_feat.xml
+    python -m strugatzki_tpu_torch.cli -s [--device D] ... input_feat.xml
+    python -m strugatzki_tpu_torch.cli -x [--device D] ... input_feat.xml out.png
+    python -m strugatzki_tpu_torch.cli -y [--device D] ... in1_feat.xml in2_feat.xml out.aif
 
 ``--device`` is ``cuda`` (the default) or ``cpu``; CUDA is never replaced by
-the CPU unless asked.  ``-s``, ``-x`` and ``-y`` are not ported yet.
+the CPU unless asked.  The port has no multi-device paths yet, so it does
+not read ``STRUGATZKI_MESH``.
 """
 
 from __future__ import annotations
@@ -18,10 +22,12 @@ import sys
 
 import numpy as np
 
-from strugatzki_tpu.cli import (_USAGE, NAME, _fail, _go, _parser,
+from strugatzki_tpu.cli import (_USAGE, NAME, _fail, _go, _mk_span, _parser,
                                 _secs_to_frames, to_db_str, to_percent_str)
 from strugatzki_tpu.config import (NORMALIZE_NAME, ChannelsBehavior,
-                                   CorrelationConfig, ExtractionConfig, Punch)
+                                   CorrelationConfig, CrossSimilarityConfig,
+                                   ExtractionConfig, Punch,
+                                   SegmentationConfig, SelfSimilarityConfig)
 from strugatzki_tpu.io import audiofile as af
 from strugatzki_tpu.io.formats import AIFF
 from strugatzki_tpu.span import Span
@@ -184,21 +190,175 @@ def feature_stats(args) -> int:
     return 1
 
 
-def _not_ported(switch: str):
-    def run(args) -> int:
-        print(f"{NAME} {switch}: not ported yet (use python -m strugatzki_tpu)",
+def feature_segm(args) -> int:
+    """Segmentation (Strugatzki.scala:219-304)."""
+    p = _parser(f"{NAME} -s")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("-d", "--dir")
+    p.add_argument("--length", type=float, default=0.5)
+    p.add_argument("--temp", type=float, default=0.5)
+    p.add_argument("--span-start", type=float)
+    p.add_argument("--span-stop", type=float)
+    p.add_argument("-m", "--num-breaks", type=int, default=1)
+    p.add_argument("--spacing", type=float, default=0.2)
+    p.add_argument("--no-norm", action="store_true")
+    _add_device(p)
+    p.add_argument("input", help="Meta file of input to process")
+    ns = p.parse_args(args)
+
+    meta_in = ExtractionConfig.from_xml_file(ns.input)
+    sr = af.read_spec(meta_in.audio_input).sample_rate
+
+    span = _mk_span(ns.span_start, ns.span_stop, sr)
+    if not span.non_empty:
+        # reference: require(span.nonEmpty, "Span is empty")
+        raise SystemExit("requirement failed: Span is empty")
+    corr_frames = _secs_to_frames(ns.length, sr)
+    if corr_frames <= 0:
+        raise SystemExit("Correlation duration is zero")
+
+    normalize = not ns.no_norm
+    if normalize and ns.dir is None:
+        p.print_usage()
+        return 1
+
+    from .analysis.segmentation import FeatureSegmentation
+    FeatureSegmentation.verbose = ns.verbose
+    FeatureSegmentation.device = ns.device
+    cfg = SegmentationConfig(
+        database_folder=ns.dir or "database", meta_input=ns.input, span=span,
+        corr_len=corr_frames, temporal_weight=ns.temp, normalize=normalize,
+        num_breaks=ns.num_breaks,
+        min_spacing=_secs_to_frames(ns.spacing, sr))
+
+    res = _go(FeatureSegmentation, cfg)
+    if res.is_success:
+        breaks = res.value
+        if breaks:
+            print("  Success.")
+            for b in breaks:
+                print(f"\nSimilarity: {to_percent_str(b.sim)}"
+                      f"\nPosition:   {b.pos}")
+            print()
+        else:
+            print("  No breaks found.")
+        return 0
+    _fail(res)
+    return 1
+
+
+def feature_self(args) -> int:
+    """Self-similarity image (Strugatzki.scala:306-398)."""
+    p = _parser(f"{NAME} -x")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("-d", "--dir")
+    p.add_argument("--length", type=float, default=1.0)
+    p.add_argument("--temp", type=float, default=0.5)
+    p.add_argument("--span-start", type=float)
+    p.add_argument("--span-stop", type=float)
+    p.add_argument("-c", "--colors", default="psycho",
+                   help="Color scale (gray|psycho ; defaults to 'psycho')")
+    p.add_argument("--color-warp", type=float, default=1.0)
+    p.add_argument("--color-ceil", type=float, default=1.0)
+    p.add_argument("-i", "--color-inv", action="store_true")
+    p.add_argument("-m", "--decim", type=int, default=1)
+    p.add_argument("--input2", help="Second meta input for cross-similarity")
+    p.add_argument("--no-norm", action="store_true")
+    _add_device(p)
+    p.add_argument("input", help="Meta file of input to process")
+    p.add_argument("output", help="Image output file")
+    ns = p.parse_args(args)
+
+    meta_in = ExtractionConfig.from_xml_file(ns.input)
+    sr = af.read_spec(meta_in.audio_input).sample_rate
+    span = _mk_span(ns.span_start, ns.span_stop, sr)
+    if not span.non_empty:
+        # reference: require(span.nonEmpty, "Span is empty")
+        raise SystemExit("requirement failed: Span is empty")
+    corr_frames = _secs_to_frames(ns.length, sr)
+    if corr_frames <= 0:
+        raise SystemExit("Correlation duration is zero")
+
+    normalize = not ns.no_norm
+    if normalize and ns.dir is None:
+        p.print_usage()
+        return 1
+
+    from .analysis.self_similarity import SelfSimilarity
+    SelfSimilarity.verbose = ns.verbose
+    SelfSimilarity.device = ns.device
+    cfg = SelfSimilarityConfig(
+        database_folder=ns.dir or "database", meta_input=ns.input,
+        meta_input2=ns.input2, image_output=ns.output, span=span,
+        corr_len=corr_frames, decimation=ns.decim, temporal_weight=ns.temp,
+        colors=ns.colors, color_warp=ns.color_warp, color_ceil=ns.color_ceil,
+        color_inv=ns.color_inv, normalize=normalize)
+
+    res = _go(SelfSimilarity, cfg)
+    if res.is_success:
+        print("  Done.")
+        print()
+        return 0
+    _fail(res)
+    return 1
+
+
+def feature_cross(args) -> int:
+    """Cross-similarity vector (Strugatzki.scala:524-608)."""
+    p = _parser(f"{NAME} -y")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("-d", "--dir")
+    p.add_argument("--temp", type=float, default=0.5)
+    p.add_argument("--span1-start", type=float)
+    p.add_argument("--span1-stop", type=float)
+    p.add_argument("--span2-start", type=float)
+    p.add_argument("--span2-stop", type=float)
+    p.add_argument("--boost-max", type=float, default=8.0)
+    p.add_argument("--no-norm", action="store_true")
+    _add_device(p)
+    p.add_argument("input1", help="Meta file of first input")
+    p.add_argument("input2", help="Meta file of second input")
+    p.add_argument("output", help="Audio output file")
+    ns = p.parse_args(args)
+
+    normalize = not ns.no_norm
+    if normalize and ns.dir is None:
+        print("Either choose --no-norm or specify a database --dir.",
               file=sys.stderr)
-        return 2
-    return run
+        return 1
+
+    meta1 = ExtractionConfig.from_xml_file(ns.input1)
+    sr1 = af.read_spec(meta1.audio_input).sample_rate
+    meta2 = ExtractionConfig.from_xml_file(ns.input2)
+    sr2 = af.read_spec(meta2.audio_input).sample_rate
+
+    from .analysis.cross_similarity import CrossSimilarity
+    CrossSimilarity.verbose = ns.verbose
+    CrossSimilarity.device = ns.device
+    cfg = CrossSimilarityConfig(
+        database_folder=ns.dir or "database",
+        meta_input1=ns.input1, meta_input2=ns.input2,
+        span1=_mk_span(ns.span1_start, ns.span1_stop, sr1),
+        span2=_mk_span(ns.span2_start, ns.span2_stop, sr2),
+        temporal_weight=ns.temp, normalize=normalize,
+        max_boost=ns.boost_max)
+    cfg.set_audio_output(ns.output)  # output type inferred from extension
+
+    res = _go(CrossSimilarity, cfg)
+    if res.is_success:
+        print("  Success.")
+        return 0
+    _fail(res)
+    return 1
 
 
 _SWITCHES = {
     "-f": feature_pre, "--feature": feature_pre,
     "-c": feature_corr, "--correlate": feature_corr,
+    "-s": feature_segm, "--segmentation": feature_segm,
+    "-x": feature_self, "--selfsimilarity": feature_self,
+    "-y": feature_cross, "--crosssimilarity": feature_cross,
     "--stats": feature_stats,
-    "-s": _not_ported("-s"), "--segmentation": _not_ported("-s"),
-    "-x": _not_ported("-x"), "--selfsimilarity": _not_ported("-x"),
-    "-y": _not_ported("-y"), "--crosssimilarity": _not_ported("-y"),
 }
 
 

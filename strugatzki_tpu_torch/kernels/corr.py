@@ -1,17 +1,29 @@
-"""Sliding template correlation (the FFT trace family) in PyTorch.
+"""Sliding-correlation kernels in PyTorch.
 
-Port of the trace half of ``strugatzki_tpu/kernels/corr.py``: one rfft per
-channel serves the template dots and, through a ones-kernel spectrum, the
-sliding window sums and sums of squares.  Templates are pre-centered in f64
-on the host and feature matrices pre-shifted per channel group, so the f32
-FFT round trip holds the parity budget (see the JAX module's docstring for
-the algebra).
+Port of ``strugatzki_tpu/kernels/corr.py``:
 
-Every device function takes ``[..., C, Tp]`` feature stacks: a leading
-batch dimension stands in for ``vmap`` over files.  Template statistics and
-weights are host scalars (rounded to f32 like the JAX package's
-``jnp.float32`` arguments); ``temporal_shift`` is a scalar or a ``[...]``
-tensor of per-file shifts.
+* **sliding template correlation** (FeatureCorrelation, CrossSimilarity):
+  one rfft per channel serves the template dots and, through a ones-kernel
+  spectrum, the sliding window sums and sums of squares;
+* **novelty curve** (FeatureSegmentation): ``correlateHalf`` at every window
+  position from a lag product plus FFT window sums;
+* **gram similarity** (SelfSimilarity): ``correlateHalf`` over window pairs
+  from one matmul per channel group plus per-window sums.
+
+Templates are pre-centered in f64 on the host and feature matrices
+pre-shifted per channel group, which holds the template traces' parity
+budget in f32 (see the JAX module's docstring for the algebra).  The two
+``correlateHalf`` families compute their statistics in float64 instead:
+their ``q/N − μ²`` has no template centering to rescue it (see
+:func:`novelty_trace`).
+
+Every device function takes ``[..., C, Tp]`` feature stacks (``[..., B, C,
+h]`` window blocks for the gram): a leading batch dimension stands in for
+``vmap``.  Template statistics and weights are host scalars (rounded to f32
+like the JAX package's ``jnp.float32`` arguments); ``temporal_shift`` is a
+scalar or a ``[...]`` tensor of per-file shifts.  A group whose blend weight
+is zero is never evaluated (the JAX package computes it and selects 0 with
+``where``: the same values).
 """
 
 from __future__ import annotations
@@ -23,7 +35,8 @@ import torch
 
 __all__ = ["prepare_template", "shift_per_group", "sliding_dot_fft",
            "correlation_trace", "trace_spectra",
-           "correlation_trace_from_spectra"]
+           "correlation_trace_from_spectra", "novelty_trace",
+           "extract_windows", "window_stats", "gram_similarity_block"]
 
 
 # ---------------------------------------------------------------------------
@@ -84,11 +97,22 @@ def _fft_len(n: int) -> int:
 
 
 @lru_cache(maxsize=64)
-def _ones_spectrum(length: int, n: int, device: torch.device) -> torch.Tensor:
+def _ones_spectrum(length: int, n: int, device: torch.device,
+                   dtype: torch.dtype = torch.complex64) -> torch.Tensor:
     """rfft of a length-``length`` ones kernel, built in f64 on the host and
-    cast to complex64: correlating with it yields sliding window sums."""
-    return torch.as_tensor(
-        np.fft.rfft(np.ones(length), n=n).astype(np.complex64), device=device)
+    cast to ``dtype``: correlating with it yields sliding window sums."""
+    return torch.as_tensor(np.fft.rfft(np.ones(length), n=n), dtype=dtype,
+                           device=device)
+
+
+def _blend(temp_weight: float, temporal, spectral):
+    """``temporal()·w + spectral()·(1 − w)`` with ``1 − w`` rounded to f32;
+    a group whose weight is zero is never evaluated, which keeps NaN/inf
+    from an unused degenerate group out of the result."""
+    w = _f32(temp_weight)
+    sim_t = temporal() if w > 0.0 else 0.0
+    sim_s = spectral() if w < 1.0 else 0.0
+    return sim_t * w + sim_s * _f32(np.float32(1.0) - np.float32(w))
 
 
 def sliding_dot_fft(template: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -212,16 +236,12 @@ def _trace_epilogue(X, t_padded, s_t, q_t, s_s, q_s, mu0,
         spec = (torch.conj(ta) * rows).sum(dim=-2)
         return torch.fft.irfft(spec, n=N)[..., :W]
 
-    # a group with zero weight is never evaluated (the JAX package computes
-    # it and selects 0 with ``where``: the same values)
-    w = _f32(temp_weight)
-    one_minus_w = _f32(np.float32(1.0) - np.float32(w))
-    zeros = torch.zeros_like(mu_t)
-    sim_t = (tdot(template_t, X[..., :nt, :])
-             / (std_t * _f32(a_std_t) * n_t)) if w > 0.0 else zeros
-    sim_s = (tdot(template_s, X[..., nt:, :])
-             / (std_s * _f32(a_std_s) * n_s)) if w < 1.0 else zeros
-    sim = sim_t * w + sim_s * one_minus_w
+    sim = _blend(
+        temp_weight,
+        lambda: tdot(template_t, X[..., :nt, :])
+        / (std_t * _f32(a_std_t) * n_t),
+        lambda: tdot(template_s, X[..., nt:, :])
+        / (std_s * _f32(a_std_s) * n_s))
 
     # loudness boost: window mean of (unshifted) channel 0 — NOT the whole
     # temporal group (FeatureCorrelationImpl.scala:73-78)
@@ -234,3 +254,118 @@ def _trace_epilogue(X, t_padded, s_t, q_t, s_s, q_s, mu0,
     # `<=` is false for a NaN boost: such windows are gated to 0
     sim = torch.where(boost <= _f32(max_boost), sim, 0.0)
     return sim.to(torch.float32), boost.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# novelty curve (FeatureSegmentation)
+# ---------------------------------------------------------------------------
+
+def novelty_trace(xs: torch.Tensor, half_win: int, temp_weight: float,
+                  num_temporal: int = 1) -> torch.Tensor:
+    """``correlateHalf`` at every window position, per group, blended.
+
+    ``xs``: ``[..., C, Tp]`` with ``Tp = W + 2·half_win − 1`` for ``W``
+    positions.  Returns float32 ``sim [..., W]``.  For the window at ``t``
+    (length ``2h``) the statistics run over the whole window and the
+    numerator reduces to ``P(t) − h·C·μ(t)²``, ``P`` the lag-``h`` product
+    sum (FeatureSegmentationImpl.scala:107-133, MathUtil.scala:82).
+
+    The JAX package's formulation, computed in float64 whatever dtype comes
+    in: both ``P − h·C·μ²`` and ``q/N − μ²`` cancel when a window's
+    variance is small against its squared mean, and the FFT window sums
+    carry round-off in proportion to the whole row, not to the window.  In
+    f32 that costs up to 3e-4 against the f64 mirror on a 5-minute
+    recording of steady sections (PERF.md, Findings).
+    """
+    h = half_win
+    nt = num_temporal
+    xs = xs.to(torch.float64)
+    Tp = xs.shape[-1]
+    W = Tp - 2 * h + 1
+    N = _fft_len(Tp)
+    ones_h = torch.conj(_ones_spectrum(h, N, xs.device, torch.complex128))
+    ones_2h = torch.conj(_ones_spectrum(2 * h, N, xs.device,
+                                        torch.complex128))
+
+    def wsum(row, ones):
+        return torch.fft.irfft(torch.fft.rfft(row, n=N) * ones, n=N)[..., :W]
+
+    def group(rows: torch.Tensor) -> torch.Tensor:
+        c = rows.shape[-2]
+        # lag product y[i] = Σ_c x[c, i]·x[c, i+h]
+        p = wsum((rows[..., :-h] * rows[..., h:]).sum(dim=-2), ones_h)
+        s = wsum(rows.sum(dim=-2), ones_2h)
+        q = wsum((rows * rows).sum(dim=-2), ones_2h)
+        n2 = 2 * h * c
+        mu = s / n2
+        # the reference's two-pass variance is non-negative by construction;
+        # q/N − μ² can round negative
+        var = torch.clamp_min(q / n2 - mu * mu, 0.0)
+        n_half = h * c
+        return (p - n_half * mu * mu) / (var * n_half)
+
+    return _blend(temp_weight, lambda: group(xs[..., :nt, :]),
+                  lambda: group(xs[..., nt:, :])).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# gram similarity (SelfSimilarity)
+# ---------------------------------------------------------------------------
+
+def extract_windows(xs: torch.Tensor, starts: torch.Tensor,
+                    half_win: int) -> torch.Tensor:
+    """Gather windows ``xs[:, s:s+half_win]`` for each start → contiguous
+    ``[B, C, h]``."""
+    idx = starts[:, None] + torch.arange(half_win, device=starts.device)
+    return xs[:, idx].permute(1, 0, 2).contiguous()
+
+
+def window_stats(win: torch.Tensor, num_temporal: int = 1):
+    """Per-window per-group sums and sums of squares: ``[..., B, C, h]`` →
+    ``(s_t, q_t, s_s, q_s)`` each ``[..., B]``, in float64 (see
+    :func:`gram_similarity_block`)."""
+    nt = num_temporal
+    win = win.to(torch.float64)
+    t, s = win[..., :nt, :], win[..., nt:, :]
+    return (t.sum(dim=(-2, -1)), (t * t).sum(dim=(-2, -1)),
+            s.sum(dim=(-2, -1)), (s * s).sum(dim=(-2, -1)))
+
+
+def gram_similarity_block(win_i: torch.Tensor, win_j: torch.Tensor,
+                          stats_i, stats_j, temp_weight: float,
+                          num_temporal: int = 1) -> torch.Tensor:
+    """Blended ``correlateHalf`` for blocks of window pairs: cell ``(i, j)``
+    correlates window ``i`` (first half) against window ``j`` (second half)
+    with joint statistics over both (SelfSimilarityImpl.scala:127-165).
+
+    ``win_*``: ``[..., B, C, h]``; ``stats_*`` from :func:`window_stats`.
+    The pair dot is one matmul per group over ``[..., B, c·h]`` rows.
+    Returns float32 ``sim [..., Bi, Bj]``.
+
+    The JAX package's formulation at float64 (a DGEMM; FP64 runs on the
+    H100's tensor cores at the rate of FP32 without them):
+    ``D − N·μ²`` and ``q/N − μ²`` cancel for a window pair whose variance
+    is small against its squared mean, which in f32 costs up to 3e-4 on a
+    3-minute piece (PERF.md, Findings)."""
+    nt = num_temporal
+    h = win_i.shape[-1]
+
+    def group(a, b, sa, qa, sb, qb):
+        c = a.shape[-2]
+        n_h = c * h
+        a = a.to(torch.float64).reshape(*a.shape[:-2], n_h)
+        b = b.to(torch.float64).reshape(*b.shape[:-2], n_h)
+        d = torch.matmul(a, b.transpose(-1, -2))
+        mu = (sa[..., :, None] + sb[..., None, :]) / (2 * n_h)
+        var = torch.clamp_min(
+            (qa[..., :, None] + qb[..., None, :]) / (2 * n_h) - mu * mu, 0.0)
+        return (d - n_h * mu * mu) / (var * n_h)
+
+    s_ti, q_ti, s_si, q_si = stats_i
+    s_tj, q_tj, s_sj, q_sj = stats_j
+    return _blend(
+        temp_weight,
+        lambda: group(win_i[..., :nt, :], win_j[..., :nt, :],
+                      s_ti, q_ti, s_tj, q_tj),
+        lambda: group(win_i[..., nt:, :], win_j[..., nt:, :],
+                      s_si, q_si, s_sj, q_sj)).to(torch.float32)

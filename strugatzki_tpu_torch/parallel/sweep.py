@@ -1,9 +1,10 @@
-"""Batched correlation sweeps over a files axis.
+"""Batched correlation and novelty sweeps over a files axis.
 
 Port of the single-device half of ``strugatzki_tpu/parallel/sweep.py``:
-the per-file sliding correlation runs over a leading files dimension in one
-batched pass (``vmap`` in the JAX package).  The mesh paths are not ported
-yet.
+the per-file sliding correlation and the per-file novelty curve run over a
+leading files dimension in one batched pass (``vmap`` in the JAX package).
+The mesh paths are not ported yet (ROADMAP queue 1, item 14): a ``mesh``
+argument other than ``None`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,16 @@ import torch
 from ..kernels import corr as K
 from ..runtime.device import resolve
 
-__all__ = ["batched_correlation_traces", "pad_stack"]
+__all__ = ["batched_correlation_traces", "batched_novelty_traces",
+           "pad_stack"]
+
+
+def reject_mesh(mesh) -> None:
+    """Raise for a ``mesh``: the sharded paths are not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: the sharded multi-device paths are not ported yet "
+            "(ROADMAP queue 1, item 14)")
 
 
 def pad_stack(mats: Sequence[np.ndarray], pad_value: float = 0.0,
@@ -60,3 +70,23 @@ def batched_correlation_traces(xs_b, shifts_t, template, temp_weight: float,
         template.ln_avg_loudness, shifts, temp_weight, max_boost,
         num_temporal=template.num_temporal)
     return sims.cpu().numpy(), boosts.cpu().numpy()
+
+
+def _batched_novelty(xs_b: torch.Tensor, half_win: int, temp_weight: float,
+                     num_temporal: int = 1) -> torch.Tensor:
+    """:func:`kernels.corr.novelty_trace` over a files/spans axis."""
+    return K.novelty_trace(xs_b, half_win, temp_weight,
+                           num_temporal=num_temporal)
+
+
+def batched_novelty_traces(xs_b, half_win: int, temp_weight: float,
+                           mesh=None, device="cuda") -> np.ndarray:
+    """Novelty curves for a padded batch of prepared feature matrices
+    ``[B, C, Tp]`` on ``device`` — the segmentation hot loop
+    (FeatureSegmentationImpl.scala:107-133) batched over files/spans.  Each
+    curve is independent.  Returns NumPy ``sims [B, W]``,
+    ``W = Tp − 2·half_win + 1``."""
+    reject_mesh(mesh)
+    xs = torch.as_tensor(np.asarray(xs_b), dtype=torch.float32,
+                         device=resolve(device))
+    return _batched_novelty(xs, half_win, temp_weight).cpu().numpy()

@@ -1,7 +1,7 @@
-"""The port stands apart from JAX: its slice (``-f``, ``--stats``, ``-c``,
-and a resident ``FeatureDatabase`` queried, saved and loaded) runs without
-importing jax, and ``chip_smoke.py`` fails loudly where there is no CUDA
-card."""
+"""The port stands apart from JAX: its analyses (``-f``, ``--stats``,
+``-c``, ``-s``, ``-x``, ``-y``, and a resident ``FeatureDatabase`` queried,
+saved and loaded) run without importing jax, and ``chip_smoke.py`` fails
+loudly where there is no CUDA card."""
 
 import os
 import shutil
@@ -42,6 +42,18 @@ _SLICE = textwrap.dedent("""
     assert main(["-c", "-d", db, "--in-start", "0.5", "--in-stop", "1.0",
                  "--dur-min", "0.5", "--dur-max", "1.0", "-m", "2",
                  "--device", "cpu", os.path.join(db, "src_feat.xml")]) == 0
+    assert main(["-s", "-d", db, "--length", "0.2", "-m", "2", "--device",
+                 "cpu", os.path.join(db, "a_feat.xml")]) == 0
+    png = os.path.join(root, "a.png")
+    assert main(["-x", "-d", db, "--length", "0.2", "--device", "cpu",
+                 os.path.join(db, "a_feat.xml"), png]) == 0
+    assert open(png, "rb").read(4)[1:] == b"PNG"
+    cross = os.path.join(root, "cross.aif")
+    assert main(["-y", "-d", db, "--span2-start", "0.5", "--span2-stop",
+                 "1.0", "--device", "cpu", os.path.join(db, "a_feat.xml"),
+                 os.path.join(db, "src_feat.xml"), cross]) == 0
+    sims, _ = af.read(cross)
+    assert int(np.argmax(sims[0])) == 43, sims
 
     from strugatzki_tpu_torch import FeatureDatabase
     from strugatzki_tpu_torch.analysis.correlation import InputTemplate

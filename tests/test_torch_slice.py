@@ -1,15 +1,20 @@
-"""The ported slice end to end on the CPU: ``-f`` → ``--stats`` → ``-c``
-with punch-out, through both packages' CLIs and correlation factories.
+"""The port end to end on the CPU: ``-f`` → ``--stats`` → ``-c`` with
+punch-out through both packages' CLIs and correlation factories, then
+``-s``, ``-x`` and ``-y`` through both CLIs on one feature folder.
 
 Feature files agree within 2e-5 (the plan budget) and their XML sidecars
 byte for byte; ``feat_norms.aif`` within 2e-5 (min and max of those
 features); matches match for match: the same files and punch spans, sims
 within 3e-5, boosts within rtol 1e-4.  The data has clear gaps between
 candidates, so no near tie can resolve differently in the two packages.
+The analyses print the same transcripts (break lines included), write PNGs
+of equal size, and cross-similarity files of equal length and rate whose
+sims agree within 3e-5.
 """
 
 import os
 import shutil
+import struct
 
 import numpy as np
 import pytest
@@ -181,7 +186,77 @@ def test_copied_extraction_helpers_equal_the_originals():
                 np.testing.assert_array_equal(a, b)
 
 
-def test_unported_switches_exit_nonzero(capsys):
-    for switch in ("-s", "-x", "-y"):
-        assert port_main([switch, "whatever"]) != 0
-        assert "not ported yet" in capsys.readouterr().err
+@pytest.fixture
+def feature_folder(tmp_path, capsys):
+    """The sounds of ``_write_sounds`` through the port's ``-f`` and
+    ``--stats``: the folder both CLIs analyse below."""
+    snd, db = tmp_path / "snd", tmp_path / "db"
+    snd.mkdir()
+    db.mkdir()
+    _write_sounds(snd)
+    assert port_main(["-f", "-d", str(db), "--device", "cpu", str(snd)]) == 0
+    assert port_main(["--stats", "-d", str(db)]) == 0
+    capsys.readouterr()
+    return db
+
+
+def _both_clis(capsys, args):
+    """One analysis through the JAX CLI, then the port's on the CPU;
+    returns both transcripts."""
+    assert jax_main(list(args)) == 0
+    jax_out = capsys.readouterr().out
+    assert port_main(list(args) + ["--device", "cpu"]) == 0
+    return jax_out, capsys.readouterr().out
+
+
+def test_segmentation_cli_matches_jax(feature_folder, capsys):
+    db = feature_folder
+    jax_out, port_out = _both_clis(
+        capsys, ["-s", "-d", str(db), "--length", "0.25", "-m", "4",
+                 "--spacing", "0.1", "--span-start", "0.2",
+                 str(db / "tgt_feat.xml")])
+    assert port_out.count("Position:") == 4
+    assert port_out == jax_out
+
+
+@pytest.mark.parametrize("extra", [[], ["-c", "gray", "-i", "-m", "2",
+                                        "--input2"]])
+def test_selfsim_cli_matches_jax(feature_folder, capsys, extra):
+    """The psycho palette over one file, and the gray inverted cross image
+    of two files at decimation 2: transcripts and PNG sizes equal."""
+    db = feature_folder
+    if extra:
+        extra = extra + [str(db / "other0_feat.xml")]
+    sizes = {}
+    outs = []
+    for tag, main, dev in (("jax", jax_main, []),
+                           ("port", port_main, ["--device", "cpu"])):
+        png = db / f"{tag}.png"
+        assert main(["-x", "-d", str(db), "--length", "0.3", *extra, *dev,
+                     str(db / "src_feat.xml"), str(png)]) == 0
+        outs.append(capsys.readouterr().out)
+        raw = png.read_bytes()
+        sizes[tag] = struct.unpack(">II", raw[16:24])
+    n = (num_output_frames(3 * SR, 512) - 2 * 26 + 1) // (2 if extra else 1)
+    assert sizes["port"] == sizes["jax"] == (n, n)
+    assert "Done." in outs[1] and outs[0] == outs[1]
+
+
+def test_cross_cli_matches_jax(feature_folder, capsys):
+    db = feature_folder
+    outs, files = [], []
+    for tag, main, dev in (("jax", jax_main, []),
+                           ("port", port_main, ["--device", "cpu"])):
+        out = db / f"{tag}_cross.aif"
+        assert main(["-y", "-d", str(db), "--span2-start", "0.5",
+                     "--span2-stop", "1.0", *dev, str(db / "tgt_feat.xml"),
+                     str(db / "src_feat.xml"), str(out)]) == 0
+        outs.append(capsys.readouterr().out)
+        files.append(af.read(str(out)))
+    (p, ps), (j, js) = files[1], files[0]
+    assert (ps.num_frames, ps.sample_rate) == (js.num_frames, js.sample_rate)
+    assert ps.num_frames == num_output_frames(3 * SR, 512) - 43 + 1
+    np.testing.assert_allclose(p, j, atol=3e-5, rtol=0)
+    # the planted 0.5-1.0 s sits in place in tgt
+    assert int(np.argmax(p[0])) == 43
+    assert "Success." in outs[1] and outs[0] == outs[1]
