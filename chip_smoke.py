@@ -32,6 +32,20 @@ drives the README quick start through the port (``strugatzki_tpu_torch``):
    memory of staging and of the queries, and a profile of one warm
    ``query`` and ``query_punch``; then it stages the same files without the
    spectra cache and times ``query`` and ``query_punch`` again.
+   modes: the database's capacity modes.  The canary with the compact
+   spectra cache and with bfloat16 features, exact families at 1e-4 and
+   ``[raw]`` ones at 4e-3; on 64 north-star files the compact cache's raw
+   sims against the complex64 cache's over every valid window; a 64-file
+   database A (memmap raw store, compact cache) and B (bfloat16 features,
+   compact cache) on CUDA against the same on the CPU.  Then A and B at
+   10,000 two-minute files made file by file from the seed, one after the
+   other: A streamed from a generator into the memmap store (f32 features,
+   device re-rank), B in memory (host f64 re-rank).  For each: staging
+   seconds, resident GB, peak device memory, first and warm latencies of
+   the four query families, the planted match first with a re-ranked sim
+   > 0.999 and a raw sim within 4e-3 of it; for A also VmRSS, the temp
+   file and its file system's free space, and a profile of one warm
+   compact ``query`` and ``query_punch``.
 6. analyses: BASELINE.json's segmentation and self-similarity configs and a
    cross-similarity, written from the seed as PCM16 and run through ``-f``,
    ``--stats`` and the three factories on CUDA.  ``-s`` on a 5-minute
@@ -459,7 +473,7 @@ Q_IN, Q_OUT = 1500, 4000        # the punches' frames in the query
 SIM_TOL, BOOST_RTOL, RERANK_TOL = 3e-5, 1e-4, 1e-5
 
 
-def counted(label: str, fn):
+def counted(label: str, fn, phase: str = "database"):
     """Run ``fn`` with the prep counters set to 0 just before and read just
     after; the path must have launched the kernel and never its plain
     version.  Returns ``(fn's result, launches)``."""
@@ -469,7 +483,7 @@ def counted(label: str, fn):
     prep.REFERENCE_CALLS = 0
     out = fn()
     launches, refs = prep.KERNEL_LAUNCHES, prep.REFERENCE_CALLS
-    print(f"database: {label}: prep kernel launches {launches}, "
+    print(f"{phase}: {label}: prep kernel launches {launches}, "
           f"plain-version calls {refs}")
     require(launches > 0, f"{label} never launched the prep kernel")
     require(refs == 0, f"{label} reached the plain version on CUDA")
@@ -487,20 +501,21 @@ def _decided(s, tol=SIM_TOL):
     return ok.all(axis=2)
 
 
-def _same_result(got, want, what: str):
-    """A CUDA query or punch result against the CPU's: sims within
-    SIM_TOL (NaN and inf where the CPU has them), boosts within BOOST_RTOL
-    where they pass the max_boost gate of 8, frames (and punch lengths)
-    equal wherever the CPU's candidate is decided.  Returns the worst sim
-    and boost errors."""
+def _same_result(got, want, what: str, tol: float = SIM_TOL,
+                 with_boosts: bool = True):
+    """A CUDA query or punch result against the CPU's: sims within ``tol``
+    (NaN and inf where the CPU has them), frames (and punch lengths) equal
+    wherever the CPU's candidate is decided at ``tol``, and unless
+    ``with_boosts`` is off, boosts within BOOST_RTOL where they pass the
+    max_boost gate of 8.  Returns the worst sim and boost errors."""
     gs, ws = np.asarray(got.sims), np.asarray(want.sims)
     require(gs.shape == ws.shape, f"{what}: shapes {gs.shape} {ws.shape}")
     for f in (np.isnan, np.isposinf, np.isneginf):
         require((f(gs) == f(ws)).all(), f"{what}: {f.__name__} positions")
     fin = np.isfinite(ws)
     s_err = float(np.abs(gs[fin] - ws[fin]).max()) if fin.any() else 0.0
-    require(s_err <= SIM_TOL, f"{what}: sims differ by {s_err:.3e}")
-    dec = _decided(ws) & fin
+    require(s_err <= tol, f"{what}: sims differ by {s_err:.3e}")
+    dec = _decided(ws, tol) & fin
     pairs = [(got.frames, want.frames)]
     if hasattr(want, "punch_lens"):
         pairs.append((got.punch_lens, want.punch_lens))
@@ -508,6 +523,8 @@ def _same_result(got, want, what: str):
                   (got.boosts_out, want.boosts_out)]
     else:
         boosts = [(got.boosts, want.boosts)]
+    if not with_boosts:
+        boosts = []
     for g, w in pairs:
         require((np.asarray(g)[dec] == np.asarray(w)[dec]).all(),
                 f"{what}: frames differ where the CPU's sims are decided")
@@ -566,11 +583,11 @@ def canary_phase() -> int:
     return total
 
 
-def compare_phase(seed: int) -> int:
-    """One seeded 64-file database on CUDA and on the CPU; the same four
-    query families, and the device re-rank against the host f64 oracle."""
+def _compare_set(seed: int):
+    """The seeded 64-file set of the CUDA-vs-CPU comparisons: ``(entries,
+    norm, t_in, t_out, batch, pairs)``, the templates of the query families
+    and a pair planted in c20.aif."""
     from strugatzki_tpu_torch.analysis.correlation import InputTemplate
-    from strugatzki_tpu_torch.parallel.database import FeatureDatabase
 
     rng = np.random.default_rng(seed + 1)
     frames = [1500 + 37 * i for i in range(64)]
@@ -591,6 +608,33 @@ def compare_phase(seed: int) -> int:
     batch = [t_in, tmpl(3, 40, 160), tmpl(11, 900, 1000)]    # 120/120/100
     pairs = [(t_in, t_out, 410, 450), (tmpl(2, 10, 110), tmpl(5, 30, 90),
                                       200, 600)]
+    return entries, norm, t_in, t_out, batch, pairs
+
+
+def _same_results(got, want, names, what: str = "", **kw):
+    """:func:`_same_result` over parallel lists of results (or of result
+    batches); returns the worst sim and boost errors."""
+    worst_s = worst_b = 0.0
+    for name, g, w in zip(names, got, want):
+        for q, (gr, wr) in enumerate(zip(g, w) if isinstance(g, list)
+                                     else [(g, w)]):
+            s, b = _same_result(gr, wr, f"{what}{name}[{q}]", **kw)
+            worst_s, worst_b = max(worst_s, s), max(worst_b, b)
+    return worst_s, worst_b
+
+
+def _require_planted_pair(res, what: str = "") -> None:
+    m = res.matches(512, 1)[0]
+    require(m.file == "c20.aif" and m.punch.start == 300 * 512
+            and m.punch.stop == 720 * 512, f"{what}planted pair: {m}")
+
+
+def compare_phase(seed: int) -> int:
+    """One seeded 64-file database on CUDA and on the CPU; the same four
+    query families, and the device re-rank against the host f64 oracle."""
+    from strugatzki_tpu_torch.parallel.database import FeatureDatabase
+
+    entries, norm, t_in, t_out, batch, pairs = _compare_set(seed)
 
     def run(db):
         return (db.query(t_in, k=6), db.query_punch(t_in, t_out, 410, 450,
@@ -609,15 +653,8 @@ def compare_phase(seed: int) -> int:
     (db, got), launches = counted("64-file database on CUDA", on_card)
     names = ["query", "query_punch", "query_batch", "query_punch_batch",
              "query exact_rerank", "query_punch exact_rerank"]
-    worst_s = worst_b = 0.0
-    for name, g, w in zip(names, got, cpu):
-        for q, (gr, wr) in enumerate(zip(g, w) if isinstance(g, list)
-                                     else [(g, w)]):
-            s, b = _same_result(gr, wr, f"{name}[{q}]")
-            worst_s, worst_b = max(worst_s, s), max(worst_b, b)
-    m = got[1].matches(512, 1)[0]
-    require(m.file == "c20.aif" and m.punch.start == 300 * 512
-            and m.punch.stop == 720 * 512, f"planted pair: {m}")
+    worst_s, worst_b = _same_results(got, cpu, names)
+    _require_planted_pair(got[1])
     print(f"database: 64 files CUDA vs CPU, {', '.join(names)}: sims max "
           f"|err| {worst_s:.3e} ({SIM_TOL}), boosts max rel err "
           f"{worst_b:.3e} ({BOOST_RTOL}), frames equal where decided")
@@ -717,12 +754,62 @@ def _profile(label: str, fn, card: str, warmup: bool = True) -> None:
               f"{e.count:6d}x  {e.key[:90]}")
 
 
+def _scale_calls(query, norm):
+    """The serving deployment's templates, cut from ``query``: the 10 s
+    punch-in, the 5 s punch-out, batches of 8 templates and of 8 pairs;
+    returns ``(t_in, t_out, {name: call of a database})``."""
+    from strugatzki_tpu_torch.analysis.correlation import InputTemplate
+
+    def tmpl(a, n):
+        return InputTemplate.from_features(query, norm, a, a + n)
+
+    t_in, t_out = tmpl(Q_IN, L_IN), tmpl(Q_OUT, L_OUT)
+    t_batch = [t_in] + [tmpl(200 + 1000 * q, L_IN) for q in range(7)]
+    pairs = [(t_in, t_out) + BAND] + [
+        (tmpl(100 + 1100 * q, L_IN), tmpl(300 + 1100 * q, L_OUT)) + BAND
+        for q in range(7)]
+    calls = {
+        "query": lambda db: db.query(t_in, k=4),
+        "query_punch": lambda db: db.query_punch(t_in, t_out, *BAND, k=4),
+        "query_batch of 8": lambda db: db.query_batch(t_batch, k=4),
+        "query_punch_batch of 8": lambda db: db.query_punch_batch(pairs,
+                                                                  k=4),
+        "query exact_rerank": lambda db: db.query(t_in, k=4,
+                                                  exact_rerank=True)}
+    return t_in, t_out, calls
+
+
+def _require_planted(res, name: str, target: int):
+    """The planted file first in ``query`` and ``query_punch`` at the
+    planted frames (and punch length) with sim > 0.999, and the batches'
+    results in range with the planted hit; returns the two results."""
+    q = res["query"][0]
+    m = q.matches(L_IN, STEP, 1)[0]
+    require(m.file == name and int(q.frames[target, 0])
+            == PLANT_IN and q.sims[target, 0] > 0.999,
+            f"query: top {m}, planted {name} at {PLANT_IN}")
+    p = res["query_punch"][0]
+    m = p.matches(STEP, 1)[0]
+    require(m.file == name and int(p.frames[target, 0])
+            == PLANT_IN and BAND[0] + int(p.punch_lens[target, 0])
+            == PLANT_OUT - PLANT_IN and p.sims[target, 0] > 0.999,
+            f"query_punch: top {m}, planted at {PLANT_IN}-{PLANT_OUT}")
+    for r in res["query_batch of 8"][0] + res["query_punch_batch of 8"][0]:
+        require(r.sims.shape == (SCALE_FILES, 4), "batch result shape")
+        fin = r.sims[np.isfinite(r.sims)]
+        require(fin.size and (np.abs(fin) <= 1.0 + 1e-5).all(),
+                "batch sims out of range")
+    require(res["query_batch of 8"][0][0].frames[target, 0] == PLANT_IN
+            and res["query_punch_batch of 8"][0][0].frames[target, 0]
+            == PLANT_IN, "batches lost the planted hit")
+    return q, p
+
+
 def scale_phase(seed: int, card: str) -> int:
     """10,000 two-minute files staged with the spectra cache; the planted
     file must come first in query and query_punch."""
     import torch
 
-    from strugatzki_tpu_torch.analysis.correlation import InputTemplate
     from strugatzki_tpu_torch.parallel.database import FeatureDatabase
 
     rng = np.random.default_rng(seed + 2)
@@ -742,22 +829,7 @@ def scale_phase(seed: int, card: str) -> int:
           f"f32 ({feats.nbytes / 1e9:.2f} GB) made in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    def tmpl(a, n):
-        return InputTemplate.from_features(query, norm, a, a + n)
-
-    t_in, t_out = tmpl(Q_IN, L_IN), tmpl(Q_OUT, L_OUT)
-    t_batch = [t_in] + [tmpl(200 + 1000 * q, L_IN) for q in range(7)]
-    pairs = [(t_in, t_out) + BAND] + [
-        (tmpl(100 + 1100 * q, L_IN), tmpl(300 + 1100 * q, L_OUT)) + BAND
-        for q in range(7)]
-    calls = {
-        "query": lambda db: db.query(t_in, k=4),
-        "query_punch": lambda db: db.query_punch(t_in, t_out, *BAND, k=4),
-        "query_batch of 8": lambda db: db.query_batch(t_batch, k=4),
-        "query_punch_batch of 8": lambda db: db.query_punch_batch(pairs,
-                                                                  k=4),
-        "query exact_rerank": lambda db: db.query(t_in, k=4,
-                                                  exact_rerank=True)}
+    t_in, t_out, calls = _scale_calls(query, norm)
 
     def stage_and_query(cache: bool, names):
         """Stage, then time ``names``; peak device memory of each part."""
@@ -789,25 +861,7 @@ def scale_phase(seed: int, card: str) -> int:
 
     (db, res), launches = counted("scale database, cache_spectra=True",
                                   lambda: stage_and_query(True, calls))
-    q = res["query"][0]
-    m = q.matches(L_IN, STEP, 1)[0]
-    require(m.file == entries[target][0] and int(q.frames[target, 0])
-            == PLANT_IN and q.sims[target, 0] > 0.999,
-            f"query: top {m}, planted {entries[target][0]} at {PLANT_IN}")
-    p = res["query_punch"][0]
-    m = p.matches(STEP, 1)[0]
-    require(m.file == entries[target][0] and int(p.frames[target, 0])
-            == PLANT_IN and BAND[0] + int(p.punch_lens[target, 0])
-            == PLANT_OUT - PLANT_IN and p.sims[target, 0] > 0.999,
-            f"query_punch: top {m}, planted at {PLANT_IN}-{PLANT_OUT}")
-    for r in res["query_batch of 8"][0] + res["query_punch_batch of 8"][0]:
-        require(r.sims.shape == (SCALE_FILES, 4), "batch result shape")
-        fin = r.sims[np.isfinite(r.sims)]
-        require(fin.size and (np.abs(fin) <= 1.0 + 1e-5).all(),
-                "batch sims out of range")
-    require(res["query_batch of 8"][0][0].frames[target, 0] == PLANT_IN
-            and res["query_punch_batch of 8"][0][0].frames[target, 0]
-            == PLANT_IN, "batches lost the planted hit")
+    q, p = _require_planted(res, entries[target][0], target)
     print(f"database: scale: planted {entries[target][0]} first in query "
           f"(frame {PLANT_IN}, sim {q.sims[target, 0]:.7f}) and query_punch "
           f"(frames {PLANT_IN}-{PLANT_OUT}, sim {p.sims[target, 0]:.7f})")
@@ -842,6 +896,251 @@ def database_phase(seed: int, card: str) -> int:
     launches += compare_phase(seed)
     prep_slab_timing(card)
     launches += scale_phase(seed, card)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the database's capacity modes
+# ---------------------------------------------------------------------------
+
+#: raw sims of reduced-precision data (exact re-rank off) against their
+#: re-ranked or full-precision value: bf16 quantization, ~1e-3
+RAW_TOL = 4e-3
+#: the four query families timed per database
+FAMILIES = ("query", "query_punch", "query_batch of 8",
+            "query_punch_batch of 8")
+
+
+def _vmrss_gb() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise CheckFailed("no VmRSS line in /proc/self/status")
+
+
+def _mode_query(seed: int):
+    """The deployment's query features (seeded apart from every file) and
+    its identity norm."""
+    query = np.random.default_rng([seed, SCALE_FILES]).random(
+        (14, SCALE_FRAMES), dtype=np.float32)
+    return query, np.stack([np.zeros(14), np.ones(14)], 1).astype(np.float32)
+
+
+def _mode_files(seed: int, query, n: int | None = None):
+    """``(name, features)`` of the north-star deployment (the first ``n``
+    files, default all), one file at a time from its own seed (the host
+    never holds the stack); file ``SCALE_FILES // 3`` holds the query's
+    punches."""
+    target = SCALE_FILES // 3
+    for i in range(SCALE_FILES if n is None else n):
+        f = np.random.default_rng([seed, i]).random((14, SCALE_FRAMES),
+                                                    dtype=np.float32)
+        if i == target:
+            f[:, PLANT_IN:PLANT_IN + L_IN] = query[:, Q_IN:Q_IN + L_IN]
+            f[:, PLANT_OUT:PLANT_OUT + L_OUT] = query[:, Q_OUT:Q_OUT + L_OUT]
+        yield f"m{i:05d}.aif", f
+
+
+def modes_canary() -> int:
+    """The planted-match canary on reduced databases: the families at
+    1e-4 and their ``[raw]`` runs at 4e-3."""
+    import torch
+
+    from strugatzki_tpu_torch.parallel.canary import (format_report,
+                                                      run_batch_canary)
+
+    total = 0
+    for kw in (dict(cache_spectra="bf16"),
+               dict(storage_dtype=torch.bfloat16)):
+        label = ", ".join(f"{k}={v}" for k, v in kw.items())
+        report, n = counted(f"canary ({label})",
+                            lambda: run_batch_canary(device="cuda", **kw),
+                            "modes")
+        print(f"modes: {label}: {format_report(report)}")
+        require(report["pass"] and report["worst_raw"] is not None,
+                "reduced canary FAIL")
+        total += n
+    return total
+
+
+def modes_compare(seed: int) -> int:
+    """64 seeded files: the compact raw traces against a full-precision
+    cache over every valid window, then databases A (memmap, compact) and
+    B (bf16 features, compact) on CUDA against the same on the CPU."""
+    from strugatzki_tpu_torch.analysis.correlation import InputTemplate
+    from strugatzki_tpu_torch.parallel.database import FeatureDatabase
+
+    # (a) the first 64 files of the deployment (north-star length): the
+    # compact cache's raw sims against the complex64 cache's, every window
+    query, norm = _mode_query(seed)
+    files = list(_mode_files(seed, query, 64))
+    t_in = InputTemplate.from_features(files[21][1], norm, 3000,
+                                       3000 + L_IN)
+
+    def traces():
+        full = FeatureDatabase(files, norm, cache_spectra=True,
+                               device="cuda")
+        comp = FeatureDatabase((f for f in files), norm, device="cuda",
+                               raw_store="memmap",
+                               time_capacity=SCALE_FRAMES,
+                               cache_spectra="bf16")
+        return [d.query(t_in, k=4, with_traces=True, exact_rerank=False)[1]
+                for d in (full, comp)]
+
+    ((fs, _, lens), (cs, _, _)), launches = counted(
+        "64 files, compact vs complex64 cache", traces, "modes")
+    w = SCALE_FRAMES - L_IN + 1
+    require((lens == SCALE_FRAMES).all(), "lens")
+    d = np.abs(cs[:, :w].astype(np.float64) - fs[:, :w])
+    fi, t = np.unravel_index(int(np.argmax(d)), d.shape)
+    err = float(d[fi, t])
+    require(err <= RAW_TOL, f"compact raw sims differ by {err:.3e}")
+    require(int(np.argmax(cs[21, :w])) == 3000, "compact lost the self-hit")
+    print(f"modes: 64 files x {SCALE_FRAMES} frames: compact (bf16 planar "
+          f"X + f32 window-sum tables) raw sims vs the complex64 cache over "
+          f"{d.size} valid windows: max |err| {err:.3e} ({RAW_TOL}) at file "
+          f"{fi}, window {t} (t/T {t / SCALE_FRAMES:.3f}); mean |err| "
+          f"{d.mean():.3e}; by quarter of T: " + ", ".join(
+              f"{d[:, q * w // 4:(q + 1) * w // 4].max():.3e}"
+              for q in range(4)))
+
+    # (b) A and B on CUDA against the same databases on the CPU
+    entries, norm, t_in, t_out, batch, pairs = _compare_set(seed)
+
+    def run(db):
+        return ([db.query(t_in, k=6), db.query_punch(t_in, t_out, 410, 450,
+                                                     k=4),
+                 db.query_batch(batch, k=4), db.query_punch_batch(pairs, k=3)],
+                [db.query(t_in, k=6, exact_rerank=False),
+                 db.query_punch(t_in, t_out, 410, 450, k=4,
+                                exact_rerank=False)])
+
+    import torch
+
+    for label, kw in (("A", dict(raw_store="memmap",
+                                 cache_spectra="bf16")),
+                      ("B", dict(storage_dtype=torch.bfloat16,
+                                 cache_spectra="bf16"))):
+        cpu = run(FeatureDatabase(entries, norm, device="cpu", **kw))
+        got, n = counted(f"64-file database {label} on CUDA",
+                         lambda: run(FeatureDatabase(entries, norm,
+                                                     device="cuda", **kw)),
+                         "modes")
+        launches += n
+        names = ["query", "query_punch", "query_batch", "query_punch_batch"]
+        s_err, b_err = _same_results(got[0], cpu[0], names, f"{label} ")
+        r_err = _same_results(got[1], cpu[1], names, f"{label} raw ",
+                              tol=RAW_TOL, with_boosts=False)[0]
+        _require_planted_pair(got[0][1], f"{label} ")
+        print(f"modes: 64 files, database {label} ({kw}) CUDA vs CPU: "
+              f"re-ranked sims max |err| {s_err:.3e} ({SIM_TOL}), boosts "
+              f"max rel err {b_err:.3e} ({BOOST_RTOL}), frames equal where "
+              f"decided; raw sims max |err| {r_err:.3e} ({RAW_TOL})")
+    return launches
+
+
+def modes_phase(seed: int, card: str) -> int:
+    """The capacity modes at the north-star deployment: database A
+    (memmap raw store from a generator, f32 features, compact cache, device
+    re-rank) and B (in memory, bf16 features, compact cache, host f64
+    re-rank), staged one after the other."""
+    import shutil
+
+    import torch
+
+    from strugatzki_tpu_torch.parallel.database import FeatureDatabase
+
+    launches = modes_canary()
+    launches += modes_compare(seed)
+
+    query, norm = _mode_query(seed)
+    target = SCALE_FILES // 3
+    name = f"m{target:05d}.aif"
+    t_in, t_out, calls = _scale_calls(query, norm)
+
+    def stage_and_serve(label, make_entries, **kw):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rss = [_vmrss_gb()]
+        t0 = time.perf_counter()
+        db = FeatureDatabase(make_entries(), norm, device="cuda", **kw)
+        t_stage = time.perf_counter() - t0
+        peak_stage = torch.cuda.max_memory_allocated()
+        rss.append(_vmrss_gb())
+        torch.cuda.reset_peak_memory_stats()
+        res = {n: _latency(lambda: calls[n](db)) for n in FAMILIES}
+        peak_query = torch.cuda.max_memory_allocated()
+        rss.append(_vmrss_gb())
+        xs_gb = db._xs.numel() * db._xs.element_size() / 1e9
+        sp_gb = sum(x.numel() * x.element_size() for x in db._spectra) / 1e9
+        print(f"modes: {label}: staged {SCALE_FILES} files (rows "
+              f"{db._xs.shape[0]}, T {db._xs.shape[2]}) in {t_stage:.3f} s: "
+              f"features {xs_gb:.2f} GB ({db._xs.dtype}) + spectra "
+              f"{sp_gb:.2f} GB ({db._spectra[0].dtype} planar) resident, "
+              f"{'device' if db._rerank_device else 'host f64'} re-rank, on "
+              f"{card}")
+        for n, (_, first, warm) in res.items():
+            print(f"modes: {label}: {n}: first {first * 1e3:.3f} ms, warm "
+                  f"median of 5 {warm * 1e3:.3f} ms on {card}")
+        print(f"modes: {label}: torch.cuda.max_memory_allocated "
+              f"{peak_stage / 1e9:.3f} GB while staging, "
+              f"{peak_query / 1e9:.3f} GB over the queries on {card}; "
+              f"VmRSS {rss[0]:.3f} GB before staging, {rss[1]:.3f} GB "
+              f"after staging, {rss[2]:.3f} GB after the queries")
+        q, p = _require_planted(res, name, target)
+        rq = db.query(t_in, k=4, exact_rerank=False)
+        rp = db.query_punch(t_in, t_out, *BAND, k=4, exact_rerank=False)
+        dq = abs(float(rq.sims[target, 0]) - float(q.sims[target, 0]))
+        dp = abs(float(rp.sims[target, 0]) - float(p.sims[target, 0]))
+        require(int(rq.frames[target, 0]) == PLANT_IN
+                and int(rp.frames[target, 0]) == PLANT_IN
+                and max(dq, dp) <= RAW_TOL, f"{label}: raw planted hit: "
+                f"frames {rq.frames[target, 0]}/{rp.frames[target, 0]}, "
+                f"|raw - re-ranked| {dq:.3e}/{dp:.3e}")
+        print(f"modes: {label}: planted {name} first in query (frame "
+              f"{PLANT_IN}, re-ranked sim {q.sims[target, 0]:.7f}, raw "
+              f"{rq.sims[target, 0]:.7f}) and query_punch (frames "
+              f"{PLANT_IN}-{PLANT_OUT}, re-ranked sim "
+              f"{p.sims[target, 0]:.7f}, raw {rp.sims[target, 0]:.7f}); "
+              f"|raw - re-ranked| {dq:.3e} and {dp:.3e} ({RAW_TOL})")
+        return db
+
+    # A: the memmap raw store needs its whole stack on the temp file system
+    tmp = tempfile.gettempdir()
+    rows = SCALE_FILES + (-SCALE_FILES % 2048)
+    need = rows * 14 * 10752 * 4
+    free = shutil.disk_usage(tmp).free
+    print(f"modes: A: {tmp} has {free / 1e9:.2f} GB free; the memmap store "
+          f"needs {need / 1e9:.2f} GB")
+    require(free >= need, f"{tmp}: {free / 1e9:.2f} GB free < "
+            f"{need / 1e9:.2f} GB for the memmap raw store")
+    db, n = counted("A (memmap, compact)", lambda: stage_and_serve(
+        "A memmap+compact", lambda: _mode_files(seed, query),
+        raw_store="memmap", time_capacity=SCALE_FRAMES,
+        cache_spectra="bf16"), "modes")
+    launches += n
+    require(isinstance(db._raw, np.memmap) and db._rerank_device,
+            "A: memmap store, device re-rank")
+    print(f"modes: A: temp file {db._raw._mmap.size() / 1e9:.3f} GB "
+          f"(unlinked) beside a raw stack of {db._raw.nbytes / 1e9:.3f} GB")
+    _profile("warm compact query (A)", lambda: db.query(t_in, k=4), card)
+    _profile("warm compact query_punch (A)",
+             lambda: db.query_punch(t_in, t_out, *BAND, k=4), card)
+    del db
+    torch.cuda.empty_cache()
+
+    # B: in memory, bf16 features (the host keeps the f32 raw stack)
+    db, n = counted("B (bf16 features, compact)", lambda:
+                    stage_and_serve("B bf16+compact",
+                                    lambda: list(_mode_files(seed, query)),
+                                    storage_dtype=torch.bfloat16,
+                                    cache_spectra="bf16"), "modes")
+    launches += n
+    require(db._xs.dtype == torch.bfloat16 and not db._rerank_device,
+            "B: bf16 features, host re-rank")
+    del db
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1280,7 +1579,8 @@ def main(argv=None) -> int:
             "TF32 settings")
     print(f"device: {name} ({card}); torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; TF32 off for matmul and cuDNN, "
-          f"float32 matmul precision 'highest'")
+          f"float32 matmul precision 'highest'; host {os.cpu_count()} "
+          f"cores, {len(os.sched_getaffinity(0))} usable")
 
     t0 = time.perf_counter()
     _build.load("prep")
@@ -1292,10 +1592,20 @@ def main(argv=None) -> int:
         if "registers" in line or "Compiling entry" in line:
             print(f"build: {line.strip()}")
 
-    err, ms, plain_ms = kernel_phase(args.seed, card)
-    launches = slice_phase(args.seed, card)
-    launches += database_phase(args.seed, card)
-    analyses_phase(args.seed, card)
+    walls = []
+
+    def timed(phase, fn):
+        t0 = time.perf_counter()
+        out = fn(args.seed, card)
+        walls.append(f"{phase} {time.perf_counter() - t0:.1f} s")
+        return out
+
+    err, ms, plain_ms = timed("kernel", kernel_phase)
+    launches = timed("slice", slice_phase)
+    launches += timed("database", database_phase)
+    launches += timed("modes", modes_phase)
+    timed("analyses", analyses_phase)
+    print(f"phases: wall {', '.join(walls)}")
 
     print(json.dumps({"kernels": [{
         "name": "prep", "route": "cuda",

@@ -35,7 +35,9 @@ import torch
 
 __all__ = ["prepare_template", "shift_per_group", "sliding_dot_fft",
            "correlation_trace", "trace_spectra",
-           "correlation_trace_from_spectra", "novelty_trace",
+           "correlation_trace_from_spectra", "forward_spectra",
+           "pack_spectra", "unpack_spectra", "window_sum_table",
+           "correlation_trace_from_sums", "novelty_trace",
            "extract_windows", "window_stats", "gram_similarity_block"]
 
 
@@ -204,6 +206,84 @@ def correlation_trace_from_spectra(X: torch.Tensor, Xsq: torch.Tensor,
     mu0 = None if nt == 1 else wsum(X[..., 0, :]) / L
     return _trace_epilogue(X, t_padded, s_t, q_t, s_s, q_s, mu0,
                            template_t, template_s, a_std_t, a_std_s,
+                           ln_avg_loud, temporal_shift, temp_weight,
+                           max_boost, num_temporal=nt)
+
+
+# ---------------------------------------------------------------------------
+# the compact spectra cache: reduced planar spectra + window-sum tables
+# ---------------------------------------------------------------------------
+
+def forward_spectra(xs: torch.Tensor) -> torch.Tensor:
+    """Per-channel forward spectra only (``X`` of :func:`trace_spectra`,
+    ``[..., C, N/2+1]``): the half the sums-based trace needs."""
+    N = _fft_len(xs.shape[-1])
+    return torch.fft.rfft(xs.to(torch.float32), n=N, dim=-1)
+
+
+def pack_spectra(z: torch.Tensor, dtype: torch.dtype = torch.bfloat16):
+    """Complex spectra → planar ``(re, im)`` tensors of a real ``dtype``
+    (round to nearest even, as XLA casts).  Bfloat16 halves a spectra
+    cache and puts ~1e-3 of noise on the sims traced from it."""
+    return z.real.to(dtype), z.imag.to(dtype)
+
+
+def unpack_spectra(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_spectra`: any real dtype pair → complex64."""
+    return torch.complex(re.to(torch.float32), im.to(torch.float32))
+
+
+def window_sum_table(xs: torch.Tensor, num_temporal: int = 1) -> torch.Tensor:
+    """Exclusive prefix sums of the window-statistic rows of ``[..., C,
+    Tp]`` features: ``[..., R, Tp+1]`` float32 with rows ``[Σ_t x, Σ_t x²,
+    Σ_s x, Σ_s x²]`` (plus an ``x[0]`` row when ``num_temporal != 1``: the
+    boost averages channel 0 alone).  A length-``L`` window sum is then
+    ``P[..., L:] − P[..., :W]``, no inverse FFT.
+
+    The table stays float32 as in the JAX package, so the error of a window
+    sum is absolute in the prefix magnitude: about ``eps32 · max|P|`` (the
+    scan order of ``torch.cumsum`` and XLA's differ, the bound does not),
+    which for a low-energy window near the end of a long row is far more
+    than the ~1e-5 relative the JAX docstring claims.  Hold anything traced
+    from it to a tolerance sized from ``max|P|``, not from the window."""
+    nt = num_temporal
+    xs = xs.to(torch.float32)
+    t, s = xs[..., :nt, :], xs[..., nt:, :]
+    rows = [t.sum(dim=-2), (t * t).sum(dim=-2),
+            s.sum(dim=-2), (s * s).sum(dim=-2)]
+    if nt != 1:
+        rows.append(xs[..., 0, :])
+    r = torch.stack(rows, dim=-2)
+    zero = torch.zeros(r.shape[:-1] + (1,), dtype=torch.float32,
+                       device=r.device)
+    return torch.cat([zero, torch.cumsum(r, dim=-1, dtype=torch.float32)],
+                     dim=-1)
+
+
+def correlation_trace_from_sums(X: torch.Tensor, sums: torch.Tensor,
+                                t_padded: int,
+                                template_t: torch.Tensor,
+                                template_s: torch.Tensor,
+                                a_std_t: float, a_std_s: float,
+                                ln_avg_loud: float, temporal_shift,
+                                temp_weight: float, max_boost: float,
+                                num_temporal: int = 1):
+    """:func:`correlation_trace` continued from forward spectra ``X`` and a
+    :func:`window_sum_table`: the 2-irfft trace (template dots only) of the
+    compact spectra cache."""
+    nt = num_temporal
+    L = template_t.shape[-1]
+    W = t_padded - L + 1
+    if W <= 0:
+        raise ValueError(
+            f"template length {L} exceeds padded signal length {t_padded}")
+
+    def wsum(r: int):
+        return sums[..., r, L:L + W] - sums[..., r, :W]
+
+    mu0 = None if nt == 1 else wsum(4) / L
+    return _trace_epilogue(X, t_padded, wsum(0), wsum(1), wsum(2), wsum(3),
+                           mu0, template_t, template_s, a_std_t, a_std_s,
                            ln_avg_loud, temporal_shift, temp_weight,
                            max_boost, num_temporal=nt)
 

@@ -6,8 +6,27 @@ the prep kernel (``kernels/prep.py``, hand-written CUDA on a card), padded,
 and kept resident as one ``[B, C, T]`` float32 tensor — and each query runs
 batched FFT correlation traces over the files axis (cuFFT), a masked
 tie-stable top-k per file, and, on request, an exact re-rank of the
-candidates.  ``cache_spectra=True`` also keeps every file's forward spectra
-resident (complex64), so a query pays only its inverse FFTs.
+candidates.
+
+Capacity modes, as in the JAX package:
+
+* ``cache_spectra=True`` keeps every file's forward spectra resident
+  (complex64, ``X`` and the group-power ``Xsq``), so a query pays only its
+  inverse FFTs;
+* ``cache_spectra="bf16"`` (any real floating dtype) is the compact cache:
+  only ``X``, as planar ``(re, im)`` tensors of that dtype, less than half
+  the complex64 cache; window statistics come from float32 window-sum tables
+  computed per query step from the resident features, so a trace pays 2
+  inverse FFTs instead of 6;
+* ``storage_dtype=torch.bfloat16`` keeps the prepared features in bfloat16
+  (half the memory); traces upcast them to float32;
+* ``raw_store="memmap"`` keeps the host's copy of the raw stack (for the
+  exact host re-rank, incremental updates and ``save``) in an unlinked temp
+  file instead of memory, streamed from ``entries`` (a one-shot generator
+  when ``time_capacity`` is given).
+
+Reduced-precision data (bf16 features or the compact cache) turns on the
+exact re-rank by default, with the device top-k inflated 4×.
 
 Serving-path divergence (as in the JAX package): files shorter than the
 template (or, for :meth:`FeatureDatabase.query_punch`, shorter than
@@ -15,9 +34,7 @@ template (or, for :meth:`FeatureDatabase.query_punch`, shorter than
 of the results; ``FeatureCorrelation`` replays the reference's zero-tailed
 single window for them.
 
-Not ported yet, and refused with ``NotImplementedError``: reduced-precision
-storage (``storage_dtype``), the compact ``cache_spectra="bf16"`` cache, the
-disk-backed ``raw_store="memmap"`` and a ``mesh``.
+Not ported yet, and refused with ``NotImplementedError``: a ``mesh``.
 """
 
 from __future__ import annotations
@@ -59,13 +76,21 @@ _SPECTRA_CHUNK = 1024
 #: the wider channel group (≤ ``C`` rows) and ~6 rows' worth of real
 #: inverse-FFT outputs and epilogue temporaries — ≈ ``8·(N/2+1)·(2C + 8)``
 #: bytes, 2.4 MB for a two-minute file (C = 14, N = 16384).  2 GiB steps so
-#: take ~880 such files per query lane, ~440 per punch pair.
+#: take ~880 such files per query lane, ~440 per punch pair.  A compact-cache
+#: step also holds, once per file, the unpacked complex64 ``X`` (``C`` rows)
+#: and the float32 window-sum table (``[4 or 5, Tp+1]``): ~620 such files
+#: per query lane, ~370 per punch pair.
 _STEP_BYTES = 2 << 30
 
 
-def _files_step(C: int, t_padded: int, lanes: int) -> int:
+def _files_step(C: int, t_padded: int, lanes: int, compact: bool = False,
+                num_temporal: int = 1) -> int:
     """Files per query step under :data:`_STEP_BYTES` (see there)."""
-    per_file = 8 * (K._fft_len(t_padded) // 2 + 1) * (2 * C + 8) * lanes
+    bins = K._fft_len(t_padded) // 2 + 1
+    per_file = 8 * bins * (2 * C + 8) * lanes
+    if compact:
+        rows = 4 if num_temporal == 1 else 5
+        per_file += 8 * bins * C + 4 * (t_padded + 1) * rows
     return max(1, _STEP_BYTES // per_file)
 
 
@@ -82,30 +107,162 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def _reject_unported(mesh=None, storage_dtype=None, cache_spectra=False,
-                     raw_store: str = "memory") -> None:
-    """Raise for every mode of the JAX package the port does not have yet;
-    none is accepted and ignored."""
+def _reject_unported(mesh=None) -> None:
+    """Raise for the one mode of the JAX package the port does not have
+    yet; it is never accepted and ignored."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh: a files-sharded database is not ported yet")
-    if storage_dtype is not None:
-        raise NotImplementedError(
-            f"storage_dtype={storage_dtype!r}: reduced-precision storage is "
-            "not ported yet (features are float32)")
-    if not isinstance(cache_spectra, (bool, np.bool_)):
-        name = str(cache_spectra).replace("torch.", "")
-        if name in ("bf16", "bfloat16", "float16", "half"):
-            raise NotImplementedError(
-                f"cache_spectra={cache_spectra!r}: the compact "
-                "reduced-precision spectra cache is not ported yet")
-        raise ValueError(f"cache_spectra={cache_spectra!r}: True (a "
-                         "complex64 cache) or False")
-    if raw_store == "memmap":
-        raise NotImplementedError(
-            "raw_store='memmap': the disk-backed raw store is not ported yet")
-    if raw_store != "memory":
-        raise ValueError(f"raw_store {raw_store!r}")
+
+
+def _real_dtype(spec, what: str) -> torch.dtype:
+    """A real floating torch dtype from a dtype or its name (``"bf16"``,
+    ``"bfloat16"``, ``"float16"``, ``torch.bfloat16``, ``np.float32``, …).
+    A complex, integer or unknown one raises ``ValueError``: a complex
+    "compact" cache would be read as a full one and give garbage sims."""
+    if isinstance(spec, torch.dtype):
+        dt = spec
+    else:
+        name = (getattr(spec, "__name__", None) or str(spec)).replace(
+            "torch.", "")
+        dt = getattr(torch, {"bf16": "bfloat16"}.get(name, name), None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f"{what}={spec!r}: not a real floating dtype")
+    return dt
+
+
+def _spectra_pack(cache_spectra) -> Optional[torch.dtype]:
+    """``cache_spectra`` → the compact cache's planar dtype, or None for
+    the complex64 cache (True) and for no cache (False or None)."""
+    if cache_spectra is None or isinstance(cache_spectra, (bool, np.bool_)):
+        return None
+    return _real_dtype(cache_spectra, "cache_spectra")
+
+
+# ---------------------------------------------------------------------------
+# host stores and uploads
+# ---------------------------------------------------------------------------
+
+def _drop_memmap_pages(raw) -> None:
+    """Best-effort MADV_DONTNEED on a memmap raw store: staging reads walk
+    the whole mapping once, and without this the touched file-backed pages
+    stay resident (RSS ≈ the full stack — exactly what the memmap store
+    exists to avoid).  No-op for in-memory stores; reads after the drop
+    fault pages back in.  (Copied from the JAX package, whose module
+    imports jax.)"""
+    if isinstance(raw, np.memmap):
+        try:
+            import mmap as _mmap
+            raw._mmap.madvise(_mmap.MADV_DONTNEED)
+        except (AttributeError, OSError, ValueError):
+            pass
+
+
+def _stack_memmap(entries, pad_multiple: int, time_capacity,
+                  pad_rows_of, check_aborted=lambda: None):
+    """Stream ``(name, [C, T])`` entries into an unlinked temp-file memmap
+    ``[B, C, t_cap]``: host RSS stays O(one row) instead of holding a
+    second full copy of the database for the life of the process.
+    ``entries`` may be a one-shot iterator when ``time_capacity`` (max
+    frames, rounded up to ``pad_multiple``) is given; a sequence needs no
+    capacity.  Returns ``(memmap, lens, names)`` with the files-axis padding
+    rows (``pad_rows_of(count)``) already appended as zeros.  (Copied from
+    the JAX package.)"""
+    import os
+    import tempfile
+
+    if time_capacity is None:
+        entries = list(entries)
+        if not entries:
+            raise ValueError("empty database")
+        time_capacity = max(np.asarray(f).shape[1] for _, f in entries)
+    t_cap = -(-int(time_capacity) // pad_multiple) * pad_multiple
+    fd, tmp_path = tempfile.mkstemp(suffix=".strugdb")
+    names, lens = [], []
+    C = None
+    try:
+        with os.fdopen(fd, "wb") as fh:
+            row = None
+            for name, feat in entries:
+                check_aborted()
+                a = np.asarray(feat, np.float32)
+                if C is None:
+                    C = a.shape[0]
+                    row = np.zeros((C, t_cap), np.float32)
+                if a.shape[0] != C:
+                    raise ValueError(
+                        f"channel count mismatch ({a.shape[0]} vs {C})")
+                if a.shape[1] > t_cap:
+                    raise ValueError(
+                        f"{name!r} has {a.shape[1]} frames > capacity "
+                        f"{t_cap}")
+                row[:] = 0.0
+                row[:, :a.shape[1]] = a
+                row.tofile(fh)
+                names.append(name)
+                lens.append(a.shape[1])
+            if C is None:
+                raise ValueError("empty database")
+            pad = pad_rows_of(len(names))
+            row[:] = 0.0
+            for _ in range(pad):
+                row.tofile(fh)
+        raw = np.memmap(tmp_path, dtype=np.float32, mode="r+",
+                        shape=(len(names) + pad, C, t_cap))
+    finally:
+        # unlink at once: the mapping keeps the inode alive (POSIX), and
+        # the backing file vanishes with the last reference
+        os.unlink(tmp_path)
+    return raw, np.asarray(lens + [0] * pad, np.int32), names
+
+
+class _HostSlab:
+    """One page-locked host buffer that every slab of a staging passes
+    through on its way to a card, unlocked and freed by :meth:`close`.
+
+    ``Tensor.pin_memory`` draws from torch's caching host allocator, which
+    keeps a freed block pinned for the rest of the process: a staging slab
+    of a 10,000-file database (~1.2 GB) would stay resident after staging —
+    host memory the memmap raw store exists to save.  This buffer is
+    page-locked with ``cudaHostRegister`` instead, and each slab waits for
+    the device (the staging loop synchronizes per slab) before the next one
+    overwrites it.  On the CPU slabs pass through as they are."""
+
+    _PAGE = 4096
+
+    def __init__(self, shape, device: torch.device) -> None:
+        self._device = device
+        self._buf = None
+        if device.type != "cuda":
+            return
+        nbytes = int(np.prod(shape)) * 4
+        # page-aligned: the whole buffer is locked, and no page is shared
+        # with another allocation
+        self._mem = np.empty(nbytes + self._PAGE, np.uint8)
+        off = -self._mem.ctypes.data % self._PAGE
+        buf = self._mem[off:off + nbytes].view(np.float32).reshape(shape)
+        rt = torch.cuda.cudart()
+        err = rt.cudaHostRegister(buf.ctypes.data, nbytes, 0)
+        if err != rt.cudaError.success:
+            raise RuntimeError(f"cudaHostRegister of {nbytes} bytes failed: "
+                               f"{rt.cudaGetErrorString(err)}")
+        self._buf = buf
+
+    def upload(self, host: np.ndarray) -> torch.Tensor:
+        """A ``[n, C, T]`` host slab (n ≤ the buffer's rows) → the device."""
+        if self._device.type != "cuda":
+            return torch.from_numpy(np.ascontiguousarray(host, np.float32))
+        n = host.shape[0]
+        np.copyto(self._buf[:n], host)
+        return torch.from_numpy(self._buf[:n]).to(self._device,
+                                                  non_blocking=True)
+
+    def close(self) -> None:
+        if self._buf is not None:
+            _sync(self._device)            # no copy may still read it
+            rt = torch.cuda.cudart()
+            rt.cudaHostUnregister(self._buf.ctypes.data)
+            self._buf = self._mem = None
 
 
 # ---------------------------------------------------------------------------
@@ -284,15 +441,20 @@ def _topk_epilogue(sims, boosts, lens, L: int, k: int):
     return vals, idx, torch.gather(boosts, -1, idx)
 
 
-def _trace(X, Xsq, t_padded: int, tmpl: "InputTemplate", shifts_t,
-           temp_weight: float, max_boost: float, num_temporal: int):
-    """One template's (sims, boosts) ``[B, W]`` from the files' spectra."""
+def _trace(X, aux, use_sums: bool, t_padded: int, tmpl: "InputTemplate",
+           shifts_t, temp_weight: float, max_boost: float,
+           num_temporal: int):
+    """One template's (sims, boosts) ``[B, W]`` from the files' spectra:
+    ``aux`` is the group-power spectra ``Xsq`` (FFT window sums), or with
+    ``use_sums`` a :func:`~..kernels.corr.window_sum_table` (the compact
+    cache's 2-irfft trace)."""
     dev = X.device
-    return K.correlation_trace_from_spectra(
-        X, Xsq, t_padded, tmpl.device_temporal(dev),
-        tmpl.device_spectral(dev), tmpl.temporal_std, tmpl.spectral_std,
-        tmpl.ln_avg_loudness, shifts_t, temp_weight, max_boost,
-        num_temporal=num_temporal)
+    fn = (K.correlation_trace_from_sums if use_sums
+          else K.correlation_trace_from_spectra)
+    return fn(X, aux, t_padded, tmpl.device_temporal(dev),
+              tmpl.device_spectral(dev), tmpl.temporal_std,
+              tmpl.spectral_std, tmpl.ln_avg_loudness, shifts_t,
+              temp_weight, max_boost, num_temporal=num_temporal)
 
 
 def _shift_left(x: torch.Tensor, sh: int, fill) -> torch.Tensor:
@@ -308,12 +470,14 @@ def _window(x: torch.Tensor, start: int, width: int) -> torch.Tensor:
     return x[..., start:start + width]
 
 
-def _punch_from_spectra(X, Xsq, t_padded: int, punch_in, punch_out,
-                        shifts_t, lens, tw_in: float, tw_out: float,
-                        max_boost: float, min_punch: int, scan_span: int,
-                        num_temporal: int = 1, k: int = 4):
+def _punch_from_spectra(X, aux, use_sums: bool, t_padded: int, punch_in,
+                        punch_out, shifts_t, lens, tw_in: float,
+                        tw_out: float, max_boost: float, min_punch: int,
+                        scan_span: int, num_temporal: int = 1, k: int = 4):
     """Punch-in × punch-out combine for a block of files (the reference's
-    three hot loops, FeatureCorrelationImpl.scala:190-389).
+    three hot loops, FeatureCorrelationImpl.scala:190-389).  ``aux`` and
+    ``use_sums`` as in :func:`_trace`; on the sums path both punch
+    templates share one window-sum table.
 
     Per file: both sliding traces, then for every punch-in offset ``t`` the
     best punch-out start in the band ``t + min_punch + [0, scan_span)``,
@@ -332,10 +496,10 @@ def _punch_from_spectra(X, Xsq, t_padded: int, punch_in, punch_out,
     W_in = Tp - L_in + 1
     W_out = Tp - L_out + 1
     dev = X.device
-    sims_in, boosts_in = _trace(X, Xsq, Tp, punch_in, shifts_t, tw_in,
-                                max_boost, num_temporal)
-    sims_out, boosts_out = _trace(X, Xsq, Tp, punch_out, shifts_t, tw_out,
-                                  max_boost, num_temporal)
+    sims_in, boosts_in = _trace(X, aux, use_sums, Tp, punch_in, shifts_t,
+                                tw_in, max_boost, num_temporal)
+    sims_out, boosts_out = _trace(X, aux, use_sums, Tp, punch_out, shifts_t,
+                                  tw_out, max_boost, num_temporal)
 
     # validity: punch-in scan runs over len − minPunch frames (:183);
     # punch-out windows must fit the file
@@ -459,18 +623,25 @@ class FeatureDatabase:
     ``*_feat.aif``).  ``norm``: the ``feat_norms.aif`` matrix or ``None``.
     ``device``: ``"cuda"`` (default), ``"cuda:N"`` or ``"cpu"``; every
     device tensor of the database lives there, and asking for CUDA without
-    a card raises.
+    a card raises.  ``storage_dtype``, ``cache_spectra``, ``raw_store`` and
+    ``time_capacity``: the capacity modes of the module docstring.
     """
 
     def __init__(self, entries: Sequence[Tuple[str, np.ndarray]],
                  norm: Optional[np.ndarray], step_size: int = 512,
                  mesh=None, pad_multiple: int = 512,
-                 storage_dtype=None, cache_spectra: bool = False,
+                 storage_dtype=None, cache_spectra=False,
                  rerank_device: Optional[bool] = None,
                  progress=None, check_aborted=None,
-                 raw_store: str = "memory", num_temporal: int = 1,
-                 device="cuda", _prestacked=None) -> None:
-        _reject_unported(mesh, storage_dtype, cache_spectra, raw_store)
+                 raw_store: str = "memory", time_capacity=None,
+                 num_temporal: int = 1, device="cuda",
+                 _prestacked=None) -> None:
+        _reject_unported(mesh)
+        if raw_store not in ("memory", "memmap"):
+            raise ValueError(f"raw_store {raw_store!r}")
+        store_dtype = torch.float32 if storage_dtype is None \
+            else _real_dtype(storage_dtype, "storage_dtype")
+        pack = _spectra_pack(cache_spectra)
         dev = resolve(device)
         # observer protocol for minutes-long stagings (the reference's
         # checkAborted/progress pattern, FeatureCorrelationImpl.scala:164,
@@ -496,6 +667,13 @@ class FeatureDatabase:
                 raw = np.concatenate(
                     [raw, np.zeros((pad_rows,) + raw.shape[1:], raw.dtype)])
                 lens = np.concatenate([lens, np.zeros(pad_rows, lens.dtype)])
+        elif raw_store == "memmap":
+            # streamed, disk-backed raw store: host RSS stays O(one file)
+            # through staging and for the life of the database (entries may
+            # be a one-shot generator when time_capacity is given)
+            raw, lens, self.files = _stack_memmap(
+                entries, pad_multiple, time_capacity, _pad_rows_of,
+                check_aborted=check_aborted)
         else:
             self.files = [name for name, _ in entries]
             mats = [np.asarray(f, np.float32) for _, f in entries]
@@ -518,55 +696,68 @@ class FeatureDatabase:
         self._device = dev
         # retained for incremental add_files/remove_files and restaging
         self._pad_multiple = pad_multiple
-        self._cache_spectra_mode = bool(cache_spectra)
+        self._raw_store = raw_store
+        self._storage_dtype = storage_dtype
+        self._cache_spectra_mode = cache_spectra
         self._lens_dev = self._put_lens()
 
-        # slab-wise staging: each ≤ _QUERY_CHUNK-file slab is uploaded from
-        # pinned memory, prepared by the prep kernel and copied in place
-        # into the preallocated resident tensor — peak device memory ≈ the
-        # database + one slab's input and output
+        # slab-wise staging: each ≤ _QUERY_CHUNK-file slab is uploaded
+        # through one page-locked buffer, prepared by the prep kernel in
+        # float32 and copied in place into the preallocated resident tensor
+        # (a reduced storage dtype rounds to nearest even in that copy, as
+        # XLA's cast does) — peak device memory ≈ the database + one slab's
+        # input and output
         B, C, T = raw.shape
         w_feat = 0.7 if cache_spectra else 1.0
-        self._xs = torch.empty((B, C, T), dtype=torch.float32, device=dev)
+        self._xs = torch.empty((B, C, T), dtype=store_dtype, device=dev)
         self._shifts = torch.empty(B, dtype=torch.float32, device=dev)
-        for o in range(0, B, _QUERY_CHUNK):
-            check_aborted()
-            s = slice(o, min(o + _QUERY_CHUNK, B))
-            xs_p, sh_p = prepare_database(
-                self._upload(raw[s]), norm, self._lens_dev[s],
-                num_temporal=num_temporal, device=dev)
-            self._xs[s].copy_(xs_p)
-            self._shifts[s].copy_(sh_p)
-            del xs_p, sh_p
-            _sync(dev)                 # one slab in flight at a time
-            progress(w_feat * min(1.0, s.stop / B))
+        slab = _HostSlab((min(B, _QUERY_CHUNK), C, T), dev)
+        try:
+            for o in range(0, B, _QUERY_CHUNK):
+                check_aborted()
+                s = slice(o, min(o + _QUERY_CHUNK, B))
+                xs_p, sh_p = prepare_database(
+                    slab.upload(raw[s]), norm, self._lens_dev[s],
+                    num_temporal=num_temporal, device=dev)
+                self._xs[s].copy_(xs_p)
+                self._shifts[s].copy_(sh_p)
+                del xs_p, sh_p
+                _sync(dev)             # one slab in flight at a time
+                _drop_memmap_pages(raw)   # keep a memmap store's RSS flat
+                progress(w_feat * min(1.0, s.stop / B))
+        finally:
+            slab.close()
 
-        # cache_spectra: every file's forward spectra resident (complex64,
-        # (C + 2)·(N/2 + 1)·8 bytes per file, ~1.7× the features) so each
-        # query pays only its inverse FFTs; filled chunk-wise
+        # cache_spectra: every file's spectra resident, filled chunk-wise,
+        # so each query pays only its inverse FFTs.  True: complex64 X and
+        # Xsq, (C + 2)·(N/2 + 1)·8 bytes per file (~1.7× f32 features).  A
+        # real dtype: the compact cache, X alone as planar (re, im) of that
+        # dtype, C·(N/2 + 1)·4 bytes per file at bf16; its window sums come
+        # from tables computed per query step (never stored)
         self._spectra = None
+        self._spectra_pack = pack
+        self._spectra_reduced = pack is not None
         if cache_spectra:
             bins = K._fft_len(T) // 2 + 1
-            bufs = (torch.empty((B, C, bins), dtype=torch.complex64,
-                                device=dev),
-                    torch.empty((B, 2, bins), dtype=torch.complex64,
-                                device=dev))
+            shapes = [((B, C, bins), torch.complex64),
+                      ((B, 2, bins), torch.complex64)] if pack is None \
+                else [((B, C, bins), pack)] * 2
+            bufs = tuple(torch.empty(shape, dtype=dt, device=dev)
+                         for shape, dt in shapes)
             for o in range(0, B, _SPECTRA_CHUNK):
                 check_aborted()
                 s = slice(o, min(o + _SPECTRA_CHUNK, B))
-                for buf, part in zip(bufs, K.trace_spectra(
-                        self._xs[s], num_temporal=num_temporal)):
-                    if part.dtype != torch.complex64:
-                        raise TypeError(
-                            f"spectra cache must be complex64, got "
-                            f"{part.dtype}")
+                for buf, part in zip(bufs, self._spectra_of(self._xs[s])):
+                    if part.dtype != buf.dtype:
+                        raise TypeError(f"spectra cache must be {buf.dtype}, "
+                                        f"got {part.dtype}")
                     buf[s].copy_(part)
                 _sync(dev)
                 progress(0.7 + 0.3 * min(1.0, s.stop / B))
             self._spectra = bufs
         # exact re-rank backend: candidate windows re-score on the device
-        # whenever the resident features are f32 (always, until reduced
-        # storage is ported); otherwise the host f64 mirror runs.  Explicit
+        # whenever the resident features are f32 (the compact cache
+        # included); bf16 features take the host f64 mirror.  Explicit
         # ``rerank_device=True`` on an ineligible configuration is an error
         # (a reduced-precision "exact" re-rank would not be exact).
         eligible = self._xs.dtype == torch.float32
@@ -587,21 +778,18 @@ class FeatureDatabase:
         """Live file count (tombstoned entries excluded)."""
         return sum(1 for n in self.files if n is not None)
 
-    def _upload(self, host: np.ndarray) -> torch.Tensor:
-        """A host slab → the device: pinned and copied ``non_blocking`` to a
-        card (the caching host allocator keeps the pinned block alive until
-        the copy is done)."""
-        t = torch.from_numpy(np.ascontiguousarray(host, np.float32))
-        if self._device.type == "cuda":
-            return t.pin_memory().to(self._device, non_blocking=True)
-        return t
+    def _spectra_of(self, xs: torch.Tensor):
+        """Spectra-cache rows of prepared features ``xs``: complex64 ``(X,
+        Xsq)``, or the compact cache's planar ``(re, im)``."""
+        if self._spectra_pack is None:
+            return K.trace_spectra(xs, num_temporal=self._num_temporal)
+        return K.pack_spectra(K.forward_spectra(xs), self._spectra_pack)
 
     @property
     def _reduced(self) -> bool:
-        """Reduced-precision resident data, which turns the exact re-rank on
-        by default (always False until bf16 storage or the compact cache
-        is ported)."""
-        return self._xs.dtype != torch.float32
+        """Reduced-precision resident data (bf16 features or the compact
+        spectra cache), which turns the exact re-rank on by default."""
+        return self._xs.dtype != torch.float32 or self._spectra_reduced
 
     # -- incremental updates -----------------------------------------------
 
@@ -670,15 +858,22 @@ class FeatureDatabase:
             raw_new = np.pad(
                 raw_new, ((0, 0), (0, 0), (0, t_cap - raw_new.shape[2])))
         dev = self._device
-        xs_p, sh_p = prepare_database(
-            self._upload(raw_new), self.norm,
-            torch.as_tensor(lens_new, device=dev),
-            num_temporal=self._num_temporal, device=dev)
-        sp_p = K.trace_spectra(xs_p, num_temporal=self._num_temporal) \
-            if self._spectra is not None else None
-        # surface any asynchronous device failure BEFORE anything mutates —
-        # past the abort point the commit must be all-or-nothing
-        _sync(dev)
+        slab = _HostSlab(raw_new.shape, dev)
+        try:
+            xs_p, sh_p = prepare_database(
+                slab.upload(raw_new), self.norm,
+                torch.as_tensor(lens_new, device=dev),
+                num_temporal=self._num_temporal, device=dev)
+            # the resident dtype, rounded as staging rounds it
+            xs_p = xs_p.to(self._xs.dtype)
+            sp_p = self._spectra_of(xs_p) \
+                if self._spectra is not None else None
+            # surface any asynchronous device failure BEFORE anything
+            # mutates — past the abort point the commit must be
+            # all-or-nothing
+            _sync(dev)
+        finally:
+            slab.close()
         progress(0.8)
         # last abort point: past here the commit runs to its end
         check_aborted()
@@ -729,14 +924,41 @@ class FeatureDatabase:
         any staging failure) mid-restage leaves the old resident database
         fully usable."""
         live = [(i, n) for i, n in enumerate(self.files) if n is not None]
-        old = [(n, self._raw[i][:, :int(self._lens[i])]) for i, n in live]
-        fresh = FeatureDatabase(
-            old + list(new_entries), self.norm, step_size=self.step_size,
-            pad_multiple=self._pad_multiple,
+        new_entries = list(new_entries)
+        # every mode carries across; time_capacity is recomputed from the
+        # live lens and the new entries (the restage may exist precisely
+        # because the old capacity was outgrown)
+        kwargs = dict(
+            step_size=self.step_size, pad_multiple=self._pad_multiple,
+            storage_dtype=self._storage_dtype,
             cache_spectra=self._cache_spectra_mode,
-            rerank_device=self._rerank_device,
+            rerank_device=self._rerank_device, raw_store=self._raw_store,
             num_temporal=self._num_temporal, device=self._device,
             progress=progress, check_aborted=check_aborted)
+        if self._raw_store == "memmap":
+            # stream the old rows lazily AND drop the old mapping's pages as
+            # the copy walks it, or the read loop faults the whole old store
+            # resident
+            import itertools
+
+            cap = max([int(self._lens[i]) for i, _ in live]
+                      + [int(np.asarray(f).shape[1])
+                         for _, f in new_entries])
+
+            def old_rows():
+                for j, (i, n) in enumerate(live):
+                    yield (n, self._raw[i][:, :int(self._lens[i])])
+                    if j % 64 == 63:
+                        _drop_memmap_pages(self._raw)
+                _drop_memmap_pages(self._raw)
+
+            fresh = FeatureDatabase(
+                itertools.chain(old_rows(), new_entries), self.norm,
+                time_capacity=cap, **kwargs)
+        else:
+            old = [(n, self._raw[i][:, :int(self._lens[i])])
+                   for i, n in live]
+            fresh = FeatureDatabase(old + new_entries, self.norm, **kwargs)
         self.__dict__.update(fresh.__dict__)
 
     # -- queries -------------------------------------------------------------
@@ -750,18 +972,27 @@ class FeatureDatabase:
                 for o in range(0, b, _QUERY_CHUNK)]
 
     def _spectra_steps(self, lanes: int):
-        """Yield ``(files slice, X, Xsq)`` over the whole files axis, each
-        step within :data:`_STEP_BYTES` of transients for ``lanes`` traces
-        per file: the resident cache's rows, or spectra computed here."""
-        step = _files_step(self._xs.shape[1], self._xs.shape[2], lanes)
+        """Yield ``(files slice, X, aux, use_sums)`` (see :func:`_trace`)
+        over the whole files axis, each step within :data:`_STEP_BYTES` of
+        transients for ``lanes`` traces per file: the resident cache's rows,
+        the compact cache's rows unpacked beside a window-sum table of the
+        step's resident features (computed here, never stored), or spectra
+        computed here."""
+        nt = self._num_temporal
+        compact = self._spectra_reduced
+        step = _files_step(self._xs.shape[1], self._xs.shape[2], lanes,
+                           compact, nt)
         for sl in self._chunks():
             for o in range(sl.start, sl.stop, step):
                 s = slice(o, min(o + step, sl.stop))
-                if self._spectra is not None:
-                    yield (s,) + tuple(b[s] for b in self._spectra)
-                else:
+                if self._spectra is None:
                     yield (s,) + K.trace_spectra(
-                        self._xs[s], num_temporal=self._num_temporal)
+                        self._xs[s], num_temporal=nt) + (False,)
+                elif compact:
+                    yield (s, K.unpack_spectra(*(b[s] for b in self._spectra)),
+                           K.window_sum_table(self._xs[s], nt), True)
+                else:
+                    yield (s,) + tuple(b[s] for b in self._spectra) + (False,)
 
     def _query_all(self, templates, temp_weight: float, max_boost: float,
                    k: int, with_traces: bool = False):
@@ -770,10 +1001,10 @@ class FeatureDatabase:
         boosts_k[, sims, boosts])`` over all rows."""
         t_padded = self._xs.shape[2]
         parts = [[] for _ in templates]
-        for s, X, Xsq in self._spectra_steps(lanes=1):
+        for s, X, aux, use_sums in self._spectra_steps(lanes=1):
             shifts, lens = self._shifts[s], self._lens_dev[s]
             for q, t in enumerate(templates):
-                sims, boosts = _trace(X, Xsq, t_padded, t, shifts,
+                sims, boosts = _trace(X, aux, use_sums, t_padded, t, shifts,
                                       temp_weight, max_boost,
                                       self._num_temporal)
                 out = _topk_epilogue(sims, boosts, lens, t.num_frames, k)
@@ -788,12 +1019,12 @@ class FeatureDatabase:
         pair the six host arrays of :func:`_punch_from_spectra`."""
         t_padded = self._xs.shape[2]
         parts = [[] for _ in pairs]
-        for s, X, Xsq in self._spectra_steps(lanes=2):
+        for s, X, aux, use_sums in self._spectra_steps(lanes=2):
             shifts, lens = self._shifts[s], self._lens_dev[s]
             for q, (p_in, p_out, mp, xp) in enumerate(pairs):
                 parts[q].append(_punch_from_spectra(
-                    X, Xsq, t_padded, p_in, p_out, shifts, lens, tw_in,
-                    tw_out, max_boost, int(mp), int(xp) - int(mp) + 1,
+                    X, aux, use_sums, t_padded, p_in, p_out, shifts, lens,
+                    tw_in, tw_out, max_boost, int(mp), int(xp) - int(mp) + 1,
                     num_temporal=self._num_temporal, k=k))
         return [tuple(_host(torch.cat(col)) for col in zip(*p))
                 for p in parts]
@@ -817,8 +1048,11 @@ class FeatureDatabase:
 
         ``exact_rerank`` recomputes the returned top-k candidates' sims and
         boosts exactly (on the device over the resident float32 features,
-        or through the host float64 mirror with ``rerank_device=False``)
-        and re-sorts each file's hits.
+        or through the host float64 mirror with ``rerank_device=False`` or
+        bf16 features) and re-sorts each file's hits.  It defaults to on
+        for reduced-precision data, whose device sims carry bf16 noise; the
+        device top-k is then inflated 4× so the re-rank can recover
+        candidates that noise pushed just outside the top-k.
         """
         self._check_template(template)
         reduced = self._reduced
@@ -994,13 +1228,48 @@ class FeatureDatabase:
             file_idx, frames, template, temp_weight, max_boost)
         return _host(sims), _host(boosts)
 
+    #: candidates per block of the host f64 re-rank: a block's float64
+    #: windows (~12 MB for 14 × 861 frames) stay in cache across its ~10
+    #: elementwise passes; one block of 4,096 windows takes 3× as long.
+    #: Every reduction runs per candidate, so blocks give identical bits,
+    #: and they run on a thread per core (NumPy releases the GIL in its
+    #: passes).
+    _EXACT_BLOCK = 128
+
     def _exact_window_scores(self, file_idx: np.ndarray,
                              frames: np.ndarray, template: "InputTemplate",
                              temp_weight: float, max_boost: float):
         """Exact (sims, boosts) of ``template`` at windows
         ``(file_idx[m], frames[m])`` — a batched mirror of
         analysis.correlation._single_window_trace with the same float
-        widths (f32 normalization, f64 accumulation, f32 results)."""
+        widths (f32 normalization, f64 accumulation, f32 results), run in
+        blocks of :data:`_EXACT_BLOCK` candidates."""
+        import os
+        from concurrent.futures import ThreadPoolExecutor
+
+        b = self._EXACT_BLOCK
+        starts = range(0, max(1, len(file_idx)), b)
+
+        def block(o):
+            return self._exact_window_block(file_idx[o:o + b],
+                                            frames[o:o + b], template,
+                                            temp_weight, max_boost)
+
+        workers = min(len(starts), os.cpu_count() or 1)
+        if workers > 1:
+            with ThreadPoolExecutor(workers) as ex:
+                parts = list(ex.map(block, starts))
+        else:
+            parts = [block(o) for o in starts]
+        return tuple(np.concatenate(col) for col in zip(*parts))
+
+    def _exact_window_block(self, file_idx: np.ndarray,
+                            frames: np.ndarray, template: "InputTemplate",
+                            temp_weight: float, max_boost: float):
+        """One block of :meth:`_exact_window_scores`: the JAX package's
+        ``_exact_window_scores`` op for op (the same bits), without its
+        redundant passes — the centered window is formed once, squared in
+        place, and a tail is masked only where one exists."""
         L = template.num_frames
         C = self._raw.shape[1]
         nt = template.num_temporal
@@ -1020,8 +1289,9 @@ class FeatureDatabase:
             # only the read frames are normalized; a zero tail stays 0
             # (the freshly-allocated buffer, _single_window_trace)
             tail = np.arange(L)[None, :] >= valid_len[:, None]
-            normed[np.broadcast_to(tail[:, None, :], normed.shape)] = 0.0
-            wins = normed.astype(np.float32)
+            if tail.any():
+                normed[np.broadcast_to(tail[:, None, :], normed.shape)] = 0.0
+            wins = normed
         w64 = wins.astype(np.float64)
         with np.errstate(divide="ignore", invalid="ignore"):
             avg32 = (w64[:, 0, :].sum(axis=1) / L).astype(np.float32)
@@ -1034,15 +1304,14 @@ class FeatureDatabase:
                 g = w64[:, lo:hi, :]
                 size = (hi - lo) * L
                 bm = g.reshape(n, -1).sum(axis=1) / size
-                var = ((g - bm[:, None, None]) ** 2
-                       ).reshape(n, -1).sum(axis=1) / size
-                bs = np.sqrt(var)
+                d = g - bm[:, None, None]
                 # the RAW normalized template block (reconstructing it as
                 # centered + f32(mean) costs 1 ulp per cell and can flip
                 # exact-compare selection gates), widened like M.correlate
                 a64 = np.asarray(block, np.float32).astype(np.float64)
-                num = ((a64[None] - a_mean) * (g - bm[:, None, None])
-                       ).reshape(n, -1).sum(axis=1)
+                num = ((a64[None] - a_mean) * d).reshape(n, -1).sum(axis=1)
+                var = np.square(d, out=d).reshape(n, -1).sum(axis=1) / size
+                bs = np.sqrt(var)
                 return (num / (a_std * bs * size)).astype(np.float32)
 
             sim_t = group_sim(0, nt, template.temporal_block,
@@ -1275,10 +1544,12 @@ class FeatureDatabase:
 
         The archive is byte-compatible with ``np.savez_compressed`` and with
         the JAX package's archives (same members; ``np.load`` reads it).
-        The ``raw`` member streams row by row, and the write goes to a
-        same-directory temp file renamed into place on success, so an abort
-        (honored between rows) or crash never leaves a torn archive at
-        ``path``.  ``compresslevel``: 1–9, default zlib's 6."""
+        The ``raw`` member streams row by row with periodic page drops, so a
+        ``raw_store="memmap"`` database saves without materializing its raw
+        stack in host memory, and the write goes to a same-directory temp
+        file renamed into place on success, so an abort (honored between
+        rows) or crash never leaves a torn archive at ``path``.
+        ``compresslevel``: 1–9, default zlib's 6."""
         import os
         import tempfile
         import zipfile
@@ -1318,7 +1589,9 @@ class FeatureDatabase:
                         f.write(np.ascontiguousarray(
                             self._raw[i]).tobytes())
                         if j % 64 == 63:
+                            _drop_memmap_pages(self._raw)
                             progress(0.9 * (j + 1) / len(keep))
+                _drop_memmap_pages(self._raw)
                 for name, arr in small.items():
                     with zf.open(name + ".npy", "w",
                                  force_zip64=True) as f:
@@ -1337,11 +1610,16 @@ class FeatureDatabase:
     def load(path, mesh=None, **stage_kwargs) -> "FeatureDatabase":
         """Re-stage a :meth:`save`d database (from either package).
         ``stage_kwargs`` pass through to the constructor (e.g. ``device=``,
-        ``cache_spectra=True``, or ``progress=``/``check_aborted=`` for the
-        staging observer protocol)."""
-        _reject_unported(mesh, stage_kwargs.get("storage_dtype"),
-                         stage_kwargs.get("cache_spectra", False),
-                         stage_kwargs.get("raw_store", "memory"))
+        ``cache_spectra="bf16"``, or ``progress=``/``check_aborted=`` for
+        the staging observer protocol).
+
+        With ``raw_store="memmap"`` the archive's ``raw`` member streams row
+        by row straight into the unlinked temp-file store: peak host RSS
+        stays O(one row + the deflate window) instead of the decompressed
+        stack, the bound :meth:`save` keeps on the way out."""
+        _reject_unported(mesh)
+        if stage_kwargs.get("raw_store") == "memmap":
+            return FeatureDatabase._load_memmap(path, stage_kwargs)
         with np.load(path, allow_pickle=False) as z:
             norm = z["norm"] if z["norm"].size else None
             # plain np.savez archives / pre-round-4 saves lack the member
@@ -1352,6 +1630,65 @@ class FeatureDatabase:
                 [str(f) for f in z["files"]], norm,
                 step_size=int(z["step_size"]),
                 _prestacked=(z["raw"], z["lens"]), **stage_kwargs)
+
+    @staticmethod
+    def _load_memmap(path, stage_kwargs) -> "FeatureDatabase":
+        """Streamed :meth:`load` for ``raw_store="memmap"``: decompress the
+        ``raw.npy`` member row by row from the zip into a fresh
+        :func:`_stack_memmap` store (files-axis padding included, so the
+        constructor's idempotent :func:`_pad_rows_of` adds none and adopts
+        the memmap as it is; a concatenate would materialize the stack).
+        Reads archives of either package and of ``np.savez_compressed``."""
+        import os
+        import zipfile
+        from numpy.lib import format as npf
+
+        check_aborted = stage_kwargs.get("check_aborted") or (lambda: None)
+        with zipfile.ZipFile(os.fspath(path)) as zf:
+            def member(name):
+                with zf.open(name + ".npy") as f:
+                    return npf.read_array(f, allow_pickle=False)
+
+            lens = member("lens")
+            norm = member("norm")
+            files = [str(f) for f in member("files")]
+            step_size = int(member("step_size"))
+            # plain np.savez archives and early saves lack the member
+            stage_kwargs.setdefault(
+                "num_temporal",
+                int(member("num_temporal"))
+                if "num_temporal.npy" in zf.namelist() else 1)
+            with zf.open("raw.npy") as f:
+                version = npf.read_magic(f)
+                if version == (1, 0):
+                    shape, fortran, dtype = npf.read_array_header_1_0(f)
+                elif version == (2, 0):
+                    shape, fortran, dtype = npf.read_array_header_2_0(f)
+                else:
+                    raise ValueError(f"unsupported npy version {version}")
+                if fortran or len(shape) != 3 or shape[0] != len(files):
+                    raise ValueError(f"unexpected raw layout {shape}")
+                n, C, t_cap = shape
+                row_bytes = C * t_cap * dtype.itemsize
+
+                def rows():
+                    for i in range(n):
+                        check_aborted()
+                        buf = f.read(row_bytes)
+                        if len(buf) != row_bytes:
+                            raise ValueError("truncated raw member")
+                        a = np.frombuffer(buf, dtype).reshape(C, t_cap)
+                        yield files[i], a[:, :int(lens[i])]
+
+                # pad_multiple=1 + time_capacity=t_cap keeps the stored
+                # frame capacity exact (it already carries the save-time
+                # padding)
+                raw, lens_p, names = _stack_memmap(
+                    rows(), 1, t_cap, _pad_rows_of,
+                    check_aborted=check_aborted)
+        return FeatureDatabase(
+            names, norm if norm.size else None, step_size=step_size,
+            _prestacked=(raw, lens_p), **stage_kwargs)
 
     @staticmethod
     def stage(entries, norm, observer=None, name: str = "database staging",

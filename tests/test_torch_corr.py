@@ -176,3 +176,138 @@ def test_sliding_traces_match_jax(scan_len):
     _close((ps, pb), (js, jb))
     if scan_len == 200:
         assert int(np.argmax(ps)) == 60 and abs(ps[60] - 1.0) < 1e-4
+
+
+# -- the compact cache: forward spectra, planar packing, window-sum tables --
+
+EPS32 = float(np.finfo(np.float32).eps)
+#: a float32 prefix row's error in units of ``eps32 · max|P|`` of the row:
+#: measured up to ~21 (a centered row's sum wanders through partial sums far
+#: above its final magnitude) in both packages at T = 3000
+TABLE_C = 64
+
+
+def _f64_table(xs, nt):
+    """The window-sum table's rows and prefixes in float64."""
+    x = np.asarray(xs, np.float64)
+    rows = [x[:nt].sum(0), (x[:nt] ** 2).sum(0), x[nt:].sum(0),
+            (x[nt:] ** 2).sum(0)] + ([x[0]] if nt != 1 else [])
+    r = np.stack(rows)
+    return np.concatenate([np.zeros((r.shape[0], 1)), np.cumsum(r, 1)], 1)
+
+
+def _table_bound(P):
+    """Per row: the absolute error a float32 prefix may carry."""
+    return TABLE_C * EPS32 * np.abs(P).max(axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("T,nt", [(300, 1), (300, 2), (3000, 1), (3000, 2)])
+def test_window_sum_table_matches_f64_prefix_and_jax(T, nt):
+    """The float32 table against an f64 prefix within ``TABLE_C · eps32 ·
+    max|P|`` per row (absolute in the prefix magnitude: the scan orders of
+    ``torch.cumsum`` and XLA differ, the bound holds for both), and window
+    sums, a difference of two prefixes, within twice that."""
+    x = _features(C=14, T=T, seed=3)
+    xs, _, _ = PK.shift_per_group(x, nt)
+    p = PK.window_sum_table(torch.from_numpy(xs), nt).numpy()
+    j = np.asarray(JK.window_sum_table(jnp.asarray(xs), nt))
+    P = _f64_table(xs, nt)
+    bound = _table_bound(P)
+    assert p.shape == j.shape == P.shape == (4 if nt == 1 else 5, T + 1)
+    assert p.dtype == np.float32 and (p[:, 0] == 0).all()
+    assert (np.abs(p - P) <= bound).all()
+    assert (np.abs(j - P) <= bound).all()
+    L = 40
+    W = T - L + 1
+    assert (np.abs((p[:, L:] - p[:, :W]) - (P[:, L:] - P[:, :W]))
+            <= 2 * bound).all()
+    # batched rows: the same table per file
+    both = PK.window_sum_table(torch.from_numpy(np.stack([xs, xs[::-1]])),
+                               nt).numpy()
+    np.testing.assert_array_equal(both[0], p)
+
+
+def _sums_tol(xs, L, nt):
+    """3e-5 (the FFT trace's budget) plus the table's share: a window sum
+    carries up to twice :func:`_table_bound`, which moves a group's window
+    variance by ``δq/n + 2|μ|·δs/n`` and its sim by at most half the
+    relative change."""
+    P = _f64_table(xs, nt)
+    d = 2 * _table_bound(P)[:, 0]
+    W = xs.shape[1] - L + 1
+    tol = 3e-5
+    for rs, rq, n in ((0, 1, nt * L), (2, 3, (xs.shape[0] - nt) * L)):
+        mu = (P[rs, L:] - P[rs, :W]) / n
+        var = (P[rq, L:] - P[rq, :W]) / n - mu * mu
+        tol += 0.5 * (d[rq] / n + 2 * np.abs(mu).max() * d[rs] / n) \
+            / var.min()
+    return tol
+
+
+@pytest.mark.parametrize("T,L,nt", [(300, 40, 1), (300, 24, 2),
+                                    (3000, 400, 1)])
+def test_correlation_trace_from_sums_matches_jax(T, L, nt):
+    """The 2-irfft trace from forward spectra and a window-sum table against
+    the JAX package's and against the port's FFT-window-sum trace, within
+    the FFT budget plus the table's share (:func:`_sums_tol`)."""
+    x = _features(C=14, T=T, seed=7)
+    xs, sh, _ = PK.shift_per_group(x, nt)
+    tc_t, tc_s, s_t, s_s, ln = _template_args(x[:, 50:50 + L], nt)
+    xt = torch.from_numpy(xs)
+    ps, pb = PK.correlation_trace_from_sums(
+        PK.forward_spectra(xt), PK.window_sum_table(xt, nt), T,
+        torch.from_numpy(tc_t), torch.from_numpy(tc_s), s_t, s_s, ln, sh,
+        0.5, 8.0, num_temporal=nt)
+    xj = jnp.asarray(xs)
+    js, jb = JK.correlation_trace_from_sums(
+        JK.forward_spectra(xj), JK.window_sum_table(xj, nt), T,
+        jnp.asarray(tc_t), jnp.asarray(tc_s), jnp.float32(s_t),
+        jnp.float32(s_s), jnp.float32(ln), jnp.float32(sh),
+        jnp.float32(0.5), jnp.float32(8.0), num_temporal=nt)
+    fft = PK.correlation_trace(xt, torch.from_numpy(tc_t),
+                               torch.from_numpy(tc_s), s_t, s_s, ln, sh,
+                               0.5, 8.0, num_temporal=nt)
+    tol = _sums_tol(xs, L, nt)
+    # the worst case of the table's share (1.6e-4 to 3.2e-4 here) stays an
+    # order below the compact mode's 4e-3 raw budget
+    assert tol < 4e-4
+    port = (ps.numpy(), pb.numpy())
+    _close(port, (np.asarray(js), np.asarray(jb)), sim_atol=tol)
+    _close(port, (fft[0].numpy(), fft[1].numpy()), sim_atol=tol)
+    assert abs(port[0][50] - 1.0) < 1e-4
+    with pytest.raises(ValueError, match="exceeds"):
+        PK.correlation_trace_from_sums(
+            PK.forward_spectra(xt), PK.window_sum_table(xt, nt), T,
+            torch.zeros(nt, T + 1), torch.zeros(14 - nt, T + 1), 1.0, 1.0,
+            0.0, 0.0, 0.5, 8.0, num_temporal=nt)
+
+
+def test_forward_spectra_and_planar_packing_match_jax():
+    """``forward_spectra`` is ``trace_spectra``'s ``X`` and the JAX
+    package's within f32 FFT round-off (5e-7 of the largest bin); bf16
+    packing of the same complex values is bit for bit the JAX package's
+    (round to nearest even), and unpacking restores complex64."""
+    x = _features(C=14, T=300, seed=5)
+    xs, _, _ = PK.shift_per_group(x)
+    X = PK.forward_spectra(torch.from_numpy(xs))
+    assert X.dtype == torch.complex64 and X.shape == (14, 257)
+    assert torch.equal(X, PK.trace_spectra(torch.from_numpy(xs))[0])
+    Xj = np.asarray(JK.forward_spectra(jnp.asarray(xs)))
+    scale = np.abs(Xj).max()
+    np.testing.assert_allclose(X.numpy(), Xj, atol=5e-7 * scale)
+    re, im = PK.pack_spectra(X)
+    jre, jim = JK.pack_spectra(jnp.asarray(X.numpy()))
+    assert re.dtype == im.dtype == torch.bfloat16
+    np.testing.assert_array_equal(re.float().numpy(),
+                                  np.asarray(jre, np.float32))
+    np.testing.assert_array_equal(im.float().numpy(),
+                                  np.asarray(jim, np.float32))
+    back = PK.unpack_spectra(re, im)
+    assert back.dtype == torch.complex64
+    np.testing.assert_array_equal(
+        back.numpy(), np.asarray(JK.unpack_spectra(jre, jim)))
+    # bf16 keeps 8 bits: each part within 2^-9 of its magnitude
+    err = np.abs(back.numpy() - X.numpy())
+    assert (err <= 2.0 ** -8 * np.abs(X.numpy()) + 1e-30).all()
+    f16 = PK.pack_spectra(X, torch.float16)
+    assert f16[0].dtype == torch.float16

@@ -444,13 +444,13 @@ def test_pad_rows_and_steps_follow_the_jax_package():
     assert PD._files_step(14, 10752, 2) == PD._files_step(14, 10752, 1) // 2
 
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(mesh=object()), "mesh"),
-    (dict(storage_dtype="bfloat16"), "storage_dtype"),
-    (dict(cache_spectra="bf16"), "compact"),
-    (dict(raw_store="memmap"), "memmap")])
-def test_unported_modes_raise(entries, kw, what):
-    with pytest.raises(NotImplementedError, match=what):
+@pytest.mark.parametrize("kw,exc,what", [
+    (dict(mesh=object()), NotImplementedError, "mesh"),
+    (dict(cache_spectra="complex64"), ValueError, "complex64")])
+def test_unported_modes_raise(entries, kw, exc, what):
+    """``mesh`` is the one mode not ported; a complex compact-cache dtype
+    is refused rather than read back as a full complex64 cache."""
+    with pytest.raises(exc, match=what):
         PD.FeatureDatabase(entries[:2], None, device="cpu", **kw)
 
 

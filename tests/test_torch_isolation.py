@@ -1,6 +1,6 @@
 """The port stands apart from JAX: its analyses (``-f``, ``--stats``,
 ``-c``, ``-s``, ``-x``, ``-y``, and a resident ``FeatureDatabase`` queried,
-saved and loaded) run without importing jax, and ``chip_smoke.py`` fails
+saved and loaded, in its capacity modes too) run without importing jax, and ``chip_smoke.py`` fails
 loudly where there is no CUDA card."""
 
 import os
@@ -72,6 +72,12 @@ _SLICE = textwrap.dedent("""
     back = FeatureDatabase.load(path, device="cpu")
     assert back.files == fdb.files
     assert (back.query(t_in, k=2).frames == res.frames).all()
+    # the capacity modes: a memmap store streamed from the archive, bf16
+    # features and the compact cache
+    modes = FeatureDatabase.load(path, device="cpu", raw_store="memmap",
+                                 storage_dtype="bf16", cache_spectra="bf16")
+    top = modes.query_punch(t_in, t_out, 20, 60, k=2).matches(512, 1)
+    assert top[0].file.endswith("src.aif") and top[0].sim > 0.999, top
     loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     assert not loaded, loaded
     print("NO_JAX_OK")
