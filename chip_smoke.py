@@ -7,10 +7,17 @@ Run from the repository root on a machine with an NVIDIA Hopper card.  It
 drives the README quick start through the port (``strugatzki_tpu_torch``):
 
 1. device: the card's name and power limit, and the full-f32 matmul settings;
-2. build: ``csrc/prep.cu`` with nvcc for sm_90a;
-3. kernel: the prep kernel against its plain PyTorch version on the card, at
-   the slice's chunk shape ``[32, 14, _bucket(10335)]`` and on ragged batches
-   with zero-length files and degenerate norm rows, and both timed;
+2. build: ``csrc/prep.cu`` (both prep kernels) with nvcc for sm_90a;
+3. kernel: both prep kernels, the one-pass cluster kernel (``prep``) and the
+   two-pass kernel for long files (``prep_long``), against their plain
+   PyTorch version on the card: at a ``-c`` chunk ``[32, 14, 11925]`` (an odd
+   ``T``), the staging slab ``[2048, 14, 10752]``, ragged batches with
+   zero-length files and degenerate norm rows, another odd ``T``, tiny
+   shapes, and files too long for a cluster (two-pass only; a forced
+   one-pass launch must raise).  Two one-pass runs must give the same bits.
+   Each kernel is timed with the L2 warm and cold (inputs rotated through
+   more than the 50 MB L2) beside its bound, the one-pass kernel also at
+   each cluster size;
 4. slice: 20 PCM16 files of 120 s plus a query, written from the seed;
    ``-f`` over the folder, ``--stats``, and a punch-in/punch-out search
    (``FeatureCorrelation``, temporal weight 0.5, 12-20 s, top 10) on CUDA.
@@ -23,7 +30,8 @@ drives the README quick start through the port (``strugatzki_tpu_torch``):
    on CUDA against the same database on the CPU (``query``,
    ``query_punch``, mixed-length ``query_batch``, ``query_punch_batch``,
    the exact re-rank, and the device re-rank against the host f64 oracle);
-   the prep kernel at the staging slab shape, timed; then the deployment
+   the same set plus one 40,000-frame recording, which the two-pass kernel
+   stages, against the CPU; then the deployment
    README.md's north star names: 10,000 two-minute files staged with the
    spectra cache, a 10 s punch-in and a 5 s punch-out planted in one file,
    which must rank first in ``query`` and ``query_punch`` (12-20 s) with
@@ -62,10 +70,11 @@ drives the README quick start through the port (``strugatzki_tpu_torch``):
    warm wall time, the peak device memory, and for ``-x`` a profile of the
    device time beside the host's colorize and deflate.
 
-Every phase that drives a path of the port sets the prep kernel's counters
+Every phase that drives a path of the port sets the prep kernels' counters
 to 0 just before and reads them just after: the slice and the database must
-launch the kernel and never its plain version; the analyses (``-s``, ``-x``,
-``-y``) prepare on the host and must not reach the plain version.
+launch the one-pass kernel (the database's long-file step the two-pass one)
+and never the plain version; the analyses (``-s``, ``-x``, ``-y``) prepare
+on the host and must not reach the plain version.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit from nvidia-smi, and the
@@ -80,12 +89,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
+import itertools
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -128,12 +139,21 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device milliseconds per call of ``fn`` over ``iters`` calls."""
+    """Mean device milliseconds per call of ``fn`` over ``iters`` calls.
+    The calls are queued behind a sleeping kernel, so the device runs them
+    back to back and a short kernel's time is not the host's launch
+    rate."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - h0          # one call, host and device
+    # at most 2e9 cycles a second: the sleep outlasts the enqueueing
+    torch.cuda._sleep(int(min(2.0, 1.5 * host_s * iters + 1e-3) * 2e9))
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -174,9 +194,14 @@ def _close(a, b, rtol=1e-5):
             np.isfinite(b) & (np.abs(a - b) <= rtol * np.abs(b)))
 
 
-def compare_prep(feats, norm, lens, nt):
-    """Kernel and plain version on the card; returns the max |error| over
-    finite values after checking every stated tolerance."""
+#: the card's memory rate (H100 SXM, HBM3; NVIDIA's data sheet), for bounds
+HBM_BYTES_PER_S = 3.35e12
+VARIANTS = {"prep": "one_pass", "prep_long": "two_pass"}
+
+
+def compare_prep(feats, norm, lens, nt, variant):
+    """One kernel variant and the plain version on the card; returns the
+    max |error| over finite values after checking every stated tolerance."""
     import torch
 
     from strugatzki_tpu_torch.kernels import prep
@@ -185,50 +210,170 @@ def compare_prep(feats, norm, lens, nt):
     f = torch.as_tensor(feats, device=dev)
     n = torch.as_tensor(norm, device=dev)
     ln = torch.as_tensor(lens, dtype=torch.int32, device=dev)
-    out_k, sh_k = prep.prepare_database_cuda(f, n, ln, nt)
+    out_k, sh_k = prep.prepare_database_cuda(f, n, ln, nt, variant=variant)
     out_r, sh_r = prep.prepare_database_reference(f, n, ln, nt)
     torch.cuda.synchronize()
     out_k, sh_k = out_k.cpu().numpy(), sh_k.cpu().numpy()
     out_r, sh_r = out_r.cpu().numpy(), sh_r.cpu().numpy()
 
-    require((np.isnan(out_k) == np.isnan(out_r)).all(), "NaN positions")
+    require((np.isnan(out_k) == np.isnan(out_r)).all(),
+            f"{variant}: NaN positions")
     require((np.isposinf(out_k) == np.isposinf(out_r)).all()
             and (np.isneginf(out_k) == np.isneginf(out_r)).all(),
-            "inf positions")
+            f"{variant}: inf positions")
     fin = np.isfinite(out_r)
     err = float(np.abs(out_k[fin] - out_r[fin]).max()) if fin.any() else 0.0
-    require(err <= 1e-6, f"finite values differ by {err:.3e} > 1e-6")
-    require(_close(sh_k, sh_r).all(), "temporal shifts differ beyond rtol 1e-5")
+    require(err <= 1e-6,
+            f"{variant}: finite values differ by {err:.3e} > 1e-6")
+    require(_close(sh_k, sh_r).all(),
+            f"{variant}: temporal shifts differ beyond rtol 1e-5")
     for b, ln_b in enumerate(lens):
         tail = out_k[b, :, ln_b:]
         if tail.shape[1] == 0:
             continue
         require(np.array_equal(tail[:nt], np.full_like(tail[:nt], -sh_k[b]),
-                               equal_nan=True), f"temporal tail of file {b}")
+                               equal_nan=True),
+                f"{variant}: temporal tail of file {b}")
         s = tail[nt:]
+        if s.size == 0:
+            continue
         require(np.array_equal(s, np.full_like(s, s[0, 0]), equal_nan=True),
-                f"spectral tail of file {b} is not one constant")
+                f"{variant}: spectral tail of file {b} is not one constant")
         require(_close(s[0, 0], out_r[b, nt, ln_b]),
-                f"spectral shift of file {b}")
+                f"{variant}: spectral shift of file {b}")
     return err
 
 
+def prep_bound_ms(B: int, C: int, T: int) -> float:
+    """The least time of one prep call on the card: its bytes (features read
+    once, prepared features written once, the norm, the lengths and the
+    temporal shifts) over the memory rate; its few operations an element
+    bound it far less."""
+    moved = 2 * B * C * T * 4 + C * 2 * 4 + B * 4 + B * 4
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def _l2_rotation(x, copies_bytes: int = 128 << 20):
+    """Copies of ``x`` that together exceed the 50 MB L2 (at least two), so
+    a call on each in turn finds its input cold."""
+    n = max(2, -(-copies_bytes // (x.numel() * 4)))
+    return [x] + [x.clone() for _ in range(n - 1)]
+
+
+def time_prep(label: str, x, norm, lens, variants, card: str, iters: int,
+              plain_iters: int):
+    """Warm (the same input every call) and cold (inputs rotated through
+    more than the L2) device times of each variant and of the plain version
+    at one shape, in turns; prints them beside the bound.  Returns
+    ``{kernel: (warm ms, cold ms)}`` and the plain version's ms."""
+    from strugatzki_tpu_torch.kernels import prep
+
+    B, C, T = x.shape
+    bufs = _l2_rotation(x)
+    bound = prep_bound_ms(B, C, T)
+
+    def run(variant, cold):
+        it = itertools.count()
+
+        def fn():
+            xi = bufs[next(it) % len(bufs)] if cold else x
+            if variant is None:
+                prep.prepare_database_reference(xi, norm, lens, 1)
+            else:
+                prep.prepare_database_cuda(xi, norm, lens, 1, variant=variant)
+        return cuda_ms(fn, plain_iters if variant is None else iters)
+
+    names = [k for k in VARIANTS if VARIANTS[k] in variants]
+    order = names + names[::-1]
+    times = {k: {"warm": [], "cold": []} for k in names}
+    plain = [run(None, False)]
+    for cold in (False, True):
+        for k in order:
+            times[k]["cold" if cold else "warm"].append(
+                run(VARIANTS[k], cold))
+    plain.append(run(None, False))
+    plain_ms = sum(plain) / 2
+    out = {}
+    for k in names:
+        w = sum(times[k]["warm"]) / 2
+        c = sum(times[k]["cold"]) / 2
+        out[k] = (w, c)
+        print(f"kernel: {label} [{B}, {C}, {T}] {k} ({VARIANTS[k]}): warm "
+              f"{w:.4f} ms, cold {c:.4f} ms (runs warm "
+              f"{', '.join(f'{t:.4f}' for t in times[k]['warm'])}, cold "
+              f"{', '.join(f'{t:.4f}' for t in times[k]['cold'])}; "
+              f"{len(bufs)} rotated inputs of {x.numel() * 4 / 1e6:.1f} MB); "
+              f"bound {bound:.4f} ms, share {bound / c:.1%} cold, "
+              f"{bound / w:.1%} warm; on {card}")
+    print(f"kernel: {label} [{B}, {C}, {T}] plain version {plain_ms:.4f} ms "
+          f"(runs {', '.join(f'{t:.4f}' for t in plain)}) on {card}")
+    del bufs
+    return out, plain_ms
+
+
+def cluster_sweep(label: str, x, norm, lens, card: str) -> None:
+    """The one-pass kernel's warm and cold time at each cluster size that
+    fits, beside how many such clusters the card holds at once."""
+    import torch
+
+    from strugatzki_tpu_torch.kernels import prep
+
+    B, C, T = x.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bufs = _l2_rotation(x)
+    parts = []
+    for nc in (4, 8, 16):
+        if prep.one_pass_smem(C, T, nc) > prep._MAX_DYN_SMEM:
+            continue
+        held = prep.one_pass_clusters(C, T, nc)
+        it = itertools.count()
+
+        def fn(cold):
+            xi = bufs[next(it) % len(bufs)] if cold else x
+            prep.prepare_database_cuda(xi, norm, lens, 1, variant="one_pass",
+                                       cluster=nc)
+        w, c = cuda_ms(lambda: fn(False), 20), cuda_ms(lambda: fn(True), 20)
+        parts.append(f"{nc} x {prep.one_pass_smem(C, T, nc) / 1024:.1f} KiB: "
+                     f"{held} clusters at once, warm {w:.4f} ms, cold "
+                     f"{c:.4f} ms")
+    print(f"kernel: {label} [{B}, {C}, {T}] one-pass cluster sizes "
+          f"(rule: {prep.one_pass_cluster(B, C, T, sms)}): "
+          f"{'; '.join(parts)} on {card}")
+    del bufs
+
+
 def kernel_phase(seed: int, card: str):
+    """Both prep variants against the plain version at every shape the
+    paths give them and at the edge cases, the one-pass kernel's
+    determinism, and their times.  Returns ``{kernel: {"err", "ms",
+    "plain_ms", "bound_ms", "shape"}}`` at each kernel's main-path shape."""
     import torch
 
     from strugatzki_tpu_torch.analysis.correlation import CHUNK_SIZE, _bucket
     from strugatzki_tpu_torch.dsp.frontend import num_output_frames
     from strugatzki_tpu_torch.kernels import prep
+    from strugatzki_tpu_torch.parallel.database import _QUERY_CHUNK
 
     rng = np.random.default_rng(seed)
+    errs = {"prep": 0.0, "prep_long": 0.0}
+
+    def both(label, f, nrm, lens, nt, variants=("one_pass", "two_pass")):
+        got = []
+        for k, v in VARIANTS.items():
+            if v in variants:
+                e = compare_prep(f, nrm, lens, nt, v)
+                errs[k] = max(errs[k], e)
+                got.append(f"{k} {e:.3e}")
+        print(f"kernel: {label} [{', '.join(map(str, f.shape))}], "
+              f"num_temporal {nt}: max |err| {', '.join(got)} (atol 1e-6, "
+              f"shifts rtol 1e-5, tails exactly -shift)")
+
     frames = num_output_frames(SECONDS * SR, STEP)
     B, C, T = CHUNK_SIZE, 14, _bucket(frames)
     lens = [frames] * DB_FILES + [0] * (B - DB_FILES)
     feats = _features(rng, B, C, T, lens)
     norm = _norm_of(feats, lens)
-    err = compare_prep(feats, norm, lens, 1)
-    print(f"kernel: prep [{B}, {C}, {T}] vs plain: max |err| {err:.3e} "
-          f"(atol 1e-6), shifts within rtol 1e-5, tails exactly -shift")
+    both("the -c chunk", feats, norm, lens, 1)
 
     lens_r = [3000, 0, 1, 1023, 1024, 2999, 1777]
     for name, row, nt in (("spectral", 5, 1), ("temporal", 0, 1),
@@ -237,32 +382,102 @@ def kernel_phase(seed: int, card: str):
         nrm = _norm_of(f, lens_r)
         nrm[row, 1] = nrm[row, 0]
         f[0, row, :7] = nrm[row, 0]          # 0/0 as well as x/0
-        e = compare_prep(f, nrm, lens_r, nt)
-        print(f"kernel: ragged {lens_r}, degenerate {name} norm row, "
-              f"num_temporal {nt}: max |err| {e:.3e}")
+        both(f"ragged {lens_r}, degenerate {name} norm row", f, nrm, lens_r,
+             nt)
+    lens_o = [4097, 0, 4096, 1, 333, 4095, 2048, 17, 4000]
+    f = _features(rng, len(lens_o), C, 4097, lens_o)
+    nrm = _norm_of(f, lens_o)
+    nrm[9, 1] = nrm[9, 0]
+    both("odd T, ragged, degenerate spectral row", f, nrm, lens_o, 1)
+    for shape, nt in (((5, 14, 3), 1), ((3, 1, 4099), 1), ((6, 5, 7), 2)):
+        lens_t = [shape[2], 0, 1] + [shape[2] - 1] * (shape[0] - 3)
+        f = _features(rng, shape[0], shape[1], shape[2], lens_t)
+        both("tiny", f, _norm_of(f, lens_t), lens_t, nt)
+    L = LONG_FRAMES
+    TL = -(-L // 512) * 512
+    lens_l = [L, TL, 0, 31234]
+    f = _features(rng, len(lens_l), C, TL, lens_l)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    require(prep.one_pass_cluster(LONG_DB, C, TL, sms) is None,
+            f"[{C}, {TL}] files fit a cluster")
+    both("long files", f, _norm_of(f, lens_l), lens_l, 1, ("two_pass",))
+    try:
+        prep.prepare_database_cuda(torch.as_tensor(f, device="cuda"),
+                                   torch.as_tensor(_norm_of(f, lens_l),
+                                                   device="cuda"),
+                                   torch.as_tensor(lens_l, dtype=torch.int32,
+                                                   device="cuda"),
+                                   variant="one_pass")
+        require(False, "a forced one-pass launch on long files did not raise")
+    except ValueError:
+        pass
 
+    # the one-pass kernel gives the same bits on every run
     dev = torch.device("cuda")
     ft = torch.as_tensor(feats, device=dev)
     nt_ = torch.as_tensor(norm, device=dev)
     lt = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = torch.rand((_QUERY_CHUNK, C, 10752), device="cuda", generator=g)
+    ns = torch.tensor([[0.0, 1.0]] * C, device="cuda")
+    ls = torch.full((_QUERY_CHUNK,), SCALE_FRAMES, dtype=torch.int32,
+                    device="cuda")
+    for x_, n_, l_ in ((ft, nt_, lt), (xs, ns, ls)):
+        a = prep.prepare_database_cuda(x_, n_, l_, 1, variant="one_pass")
+        b = prep.prepare_database_cuda(x_, n_, l_, 1, variant="one_pass")
+        require(all(torch.equal(p.view(torch.int32), q.view(torch.int32))
+                    for p, q in zip(a, b)),
+                f"one-pass runs differ at {tuple(x_.shape)}")
+        del a, b
+    print("kernel: two one-pass runs give bit-equal outputs and shifts at "
+          f"{list(ft.shape)} and {list(xs.shape)}")
+    # the slab on the card alone: a host copy of it would take minutes
+    ref_s, rsh_s = prep.prepare_database_reference(xs, ns, ls, 1)
+    n = SCALE_FRAMES
+    for k, v in VARIANTS.items():
+        out_s, sh_s = prep.prepare_database_cuda(xs, ns, ls, 1, variant=v)
+        e_slab = float((out_s - ref_s).abs().max())
+        require(e_slab <= 1e-6, f"{v} at the staging slab differs by "
+                f"{e_slab:.3e}")
+        e_sh = float(((sh_s - rsh_s).abs() / rsh_s.abs()).max())
+        require(e_sh <= 1e-5, f"{v}: staging slab shifts differ by "
+                f"{e_sh:.3e}")
+        require(bool((out_s[:, :1, n:] == -sh_s[:, None, None]).all())
+                and bool((out_s[:, 1:, n:] == out_s[:, 1:2, n:n + 1]).all()),
+                f"{v}: staging slab tails are not -shift")
+        del out_s, sh_s
+        print(f"kernel: the staging slab {list(xs.shape)}: {k} max |err| "
+              f"{e_slab:.3e} (atol 1e-6), shifts max rel err {e_sh:.3e} "
+              f"(1e-5), tails exactly -shift")
+        errs[k] = max(errs[k], e_slab)
+    del ref_s, rsh_s
 
-    def kern():
-        prep.prepare_database_cuda(ft, nt_, lt, 1)
-
-    def plain():
-        prep.prepare_database_reference(ft, nt_, lt, 1)
-
-    iters = 200
-    runs = [("plain", cuda_ms(plain, iters)), ("kernel", cuda_ms(kern, iters)),
-            ("kernel", cuda_ms(kern, iters)), ("plain", cuda_ms(plain, iters))]
-    ms = sum(t for k, t in runs if k == "kernel") / 2
-    plain_ms = sum(t for k, t in runs if k == "plain") / 2
-    moved = 3 * B * C * T * 4
-    print(f"kernel: prep {ms:.4f} ms/call vs plain {plain_ms:.4f} ms/call "
-          f"(runs {', '.join(f'{k} {t:.4f}' for k, t in runs)}; "
-          f"{moved / ms / 1e6:.0f} GB/s at 3 passes of [B,C,T] f32) "
-          f"on {card}")
-    return err, ms, plain_ms
+    cluster_sweep("the -c chunk", ft, nt_, lt, card)
+    cluster_sweep("the staging slab", xs, ns, ls, card)
+    both_v = ("one_pass", "two_pass")
+    time_prep("the -c chunk", ft, nt_, lt, both_v, card, 200, 50)
+    slab_t, slab_plain = time_prep("the staging slab", xs, ns, ls, both_v,
+                                   card, 20, 5)
+    del xs
+    xl = torch.as_tensor(_features(rng, LONG_DB, C, TL,
+                                   [L] + [1500] * (LONG_DB - 1)), device=dev)
+    nl = torch.as_tensor(_norm_of(xl.cpu().numpy(), [L]), device=dev)
+    ll = torch.tensor([L] + [1500] * (LONG_DB - 1), dtype=torch.int32,
+                      device=dev)
+    long_t, long_plain = time_prep("the long-file database", xl, nl, ll,
+                                   ("two_pass",), card, 50, 10)
+    del xl
+    torch.cuda.empty_cache()
+    return {
+        "prep": {"err": errs["prep"], "ms": slab_t["prep"][1],
+                 "plain_ms": slab_plain,
+                 "bound_ms": prep_bound_ms(_QUERY_CHUNK, C, 10752),
+                 "shape": [_QUERY_CHUNK, C, 10752]},
+        "prep_long": {"err": errs["prep_long"], "ms": long_t["prep_long"][1],
+                      "plain_ms": long_plain,
+                      "bound_ms": prep_bound_ms(LONG_DB, C, TL),
+                      "shape": [LONG_DB, C, TL]},
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -430,23 +645,15 @@ def cpu_checks(snd: str, db: str, target: str) -> None:
           f"{worst_s:.3e} (3e-5), boosts max rel err {worst_b:.3e} (1e-4)")
 
 
-def slice_phase(seed: int, card: str) -> int:
-    from strugatzki_tpu_torch.kernels import prep
-
+def slice_phase(seed: int, card: str) -> Counter:
     with tempfile.TemporaryDirectory(prefix="strugatzki_smoke_") as tmp:
         snd, db = os.path.join(tmp, "snd"), os.path.join(tmp, "db")
         os.makedirs(snd)
         os.makedirs(db)
         target, start, stop = write_sounds(snd, seed)
 
-        prep.KERNEL_LAUNCHES = 0
-        prep.REFERENCE_CALLS = 0
-        matches, t_f, t_c = run_slice(snd, db)
-        launches, refs = prep.KERNEL_LAUNCHES, prep.REFERENCE_CALLS
-        print(f"slice: prep kernel launches {launches}, plain-version calls "
-              f"{refs}")
-        require(launches > 0, "the search never launched the prep kernel")
-        require(refs == 0, "the search reached the plain version on CUDA")
+        (matches, t_f, t_c), launches = counted(
+            "-f, --stats and -c", lambda: run_slice(snd, db), "slice")
         check_matches(matches, target, start, stop)
         audio_s = (DB_FILES + 1) * SECONDS
         print(f"slice: -f {audio_s} s of audio in {t_f:.3f} s = "
@@ -471,21 +678,31 @@ BAND = (1034, 1723)             # full_to_feat(12 s), full_to_feat(20 s)
 PLANT_IN, PLANT_OUT = 2000, 3400
 Q_IN, Q_OUT = 1500, 4000        # the punches' frames in the query
 SIM_TOL, BOOST_RTOL, RERANK_TOL = 3e-5, 1e-4, 1e-5
+#: a recording too long for the one-pass kernel's cluster (~7.7 minutes;
+#: staged at T = 40,448, 2.3 MB a file) beside the 64-file set
+LONG_FRAMES = 40_000
+LONG_DB = 65
 
 
-def counted(label: str, fn, phase: str = "database"):
+def counted(label: str, fn, phase: str = "database", need: str = "prep"):
     """Run ``fn`` with the prep counters set to 0 just before and read just
-    after; the path must have launched the kernel and never its plain
-    version.  Returns ``(fn's result, launches)``."""
+    after; the path must have launched the kernel ``need`` (``prep``, the
+    one-pass kernel, or ``prep_long``, the two-pass one) and never the plain
+    version.  Returns ``(fn's result, Counter of launches by kernel)``."""
     from strugatzki_tpu_torch.kernels import prep
 
-    prep.KERNEL_LAUNCHES = 0
-    prep.REFERENCE_CALLS = 0
+    prep.KERNEL_LAUNCHES = prep.ONE_PASS_LAUNCHES = 0
+    prep.TWO_PASS_LAUNCHES = prep.REFERENCE_CALLS = 0
     out = fn()
-    launches, refs = prep.KERNEL_LAUNCHES, prep.REFERENCE_CALLS
-    print(f"{phase}: {label}: prep kernel launches {launches}, "
-          f"plain-version calls {refs}")
-    require(launches > 0, f"{label} never launched the prep kernel")
+    launches = Counter(prep=prep.ONE_PASS_LAUNCHES,
+                       prep_long=prep.TWO_PASS_LAUNCHES)
+    refs = prep.REFERENCE_CALLS
+    print(f"{phase}: {label}: prep kernel launches {launches['prep']} "
+          f"one-pass, {launches['prep_long']} two-pass, plain-version calls "
+          f"{refs}")
+    require(prep.KERNEL_LAUNCHES == sum(launches.values()),
+            "KERNEL_LAUNCHES is not the sum of the variants'")
+    require(launches[need] > 0, f"{label} never launched {need}")
     require(refs == 0, f"{label} reached the plain version on CUDA")
     return out, launches
 
@@ -568,11 +785,11 @@ def topk_on_card() -> None:
           "and ±NaN: CUDA order equals the CPU's")
 
 
-def canary_phase() -> int:
+def canary_phase() -> Counter:
     from strugatzki_tpu_torch.parallel.canary import (format_report,
                                                       run_batch_canary)
 
-    total = 0
+    total = Counter()
     for cache in (False, True):
         report, n = counted(f"canary (cache_spectra={cache})",
                             lambda: run_batch_canary(device="cuda",
@@ -629,7 +846,7 @@ def _require_planted_pair(res, what: str = "") -> None:
             and m.punch.stop == 720 * 512, f"{what}planted pair: {m}")
 
 
-def compare_phase(seed: int) -> int:
+def compare_phase(seed: int) -> Counter:
     """One seeded 64-file database on CUDA and on the CPU; the same four
     query families, and the device re-rank against the host f64 oracle."""
     from strugatzki_tpu_torch.parallel.database import FeatureDatabase
@@ -670,39 +887,36 @@ def compare_phase(seed: int) -> int:
     print(f"database: device re-rank of {len(fi)} windows vs the host f64 "
           f"oracle: sims max |err| {e_s:.3e}, boosts max rel err {e_b:.3e} "
           f"(both {RERANK_TOL})")
+    del db
+    return launches + long_file_compare(seed, entries, norm, t_in, t_out)
+
+
+def long_file_compare(seed: int, entries, norm, t_in, t_out) -> Counter:
+    """The 64-file set plus one recording too long for a cluster (the
+    staging slab's T follows it, so the two-pass kernel prepares every file)
+    on CUDA against the CPU; the planted pair stays first."""
+    from strugatzki_tpu_torch.parallel.database import FeatureDatabase
+
+    rng = np.random.default_rng(seed + 2)
+    entries = entries + [("long.aif",
+                          _db_features(rng, 1, [LONG_FRAMES])[0])]
+
+    def run(db):
+        return (db.query(t_in, k=6),
+                db.query_punch(t_in, t_out, 410, 450, k=4))
+
+    cpu = run(FeatureDatabase(entries, norm, device="cpu"))
+    got, launches = counted(
+        f"64 files and one of {LONG_FRAMES} frames on CUDA",
+        lambda: run(FeatureDatabase(entries, norm, device="cuda")),
+        need="prep_long")
+    worst_s, worst_b = _same_results(got, cpu, ["query", "query_punch"],
+                                     "long-file database ")
+    _require_planted_pair(got[1], "long-file database ")
+    print(f"database: 64 files and one of {LONG_FRAMES} frames CUDA vs CPU, "
+          f"query, query_punch: sims max |err| {worst_s:.3e} ({SIM_TOL}), "
+          f"boosts max rel err {worst_b:.3e} ({BOOST_RTOL})")
     return launches
-
-
-def prep_slab_timing(card: str) -> None:
-    """The prep kernel against its plain version at the staging slab shape
-    of the scale database."""
-    import torch
-
-    from strugatzki_tpu_torch.kernels import prep
-    from strugatzki_tpu_torch.parallel.database import _QUERY_CHUNK
-
-    B, C, T = _QUERY_CHUNK, 14, 10752
-    g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.rand((B, C, T), device="cuda", generator=g)
-    norm = torch.tensor([[0.0, 1.0]] * C, device="cuda")
-    lens = torch.full((B,), SCALE_FRAMES, dtype=torch.int32, device="cuda")
-    out_k, sh_k = prep.prepare_database_cuda(x, norm, lens, 1)
-    out_r, sh_r = prep.prepare_database_reference(x, norm, lens, 1)
-    err = float((out_k - out_r).abs().max())
-    require(err <= 1e-6, f"prep at [{B}, {C}, {T}] differs by {err:.3e}")
-    del out_k, out_r, sh_k, sh_r
-    runs = []
-    for kind in ("plain", "kernel", "kernel", "plain"):
-        fn = prep.prepare_database_cuda if kind == "kernel" \
-            else prep.prepare_database_reference
-        runs.append((kind, cuda_ms(lambda: fn(x, norm, lens, 1), 10)))
-    ms = sum(t for k, t in runs if k == "kernel") / 2
-    plain = sum(t for k, t in runs if k == "plain") / 2
-    print(f"database: prep at the staging slab [{B}, {C}, {T}]: max |err| "
-          f"{err:.3e}; kernel {ms:.3f} ms vs plain {plain:.3f} ms (runs "
-          f"{', '.join(f'{k} {t:.3f}' for k, t in runs)}) on {card}")
-    del x
-    torch.cuda.empty_cache()
 
 
 def _latency(fn, warm: int = 5):
@@ -805,7 +1019,7 @@ def _require_planted(res, name: str, target: int):
     return q, p
 
 
-def scale_phase(seed: int, card: str) -> int:
+def scale_phase(seed: int, card: str) -> Counter:
     """10,000 two-minute files staged with the spectra cache; the planted
     file must come first in query and query_punch."""
     import torch
@@ -888,13 +1102,12 @@ def scale_phase(seed: int, card: str) -> int:
     return launches
 
 
-def database_phase(seed: int, card: str) -> int:
+def database_phase(seed: int, card: str) -> Counter:
     """Every check of the resident database; returns the prep launches of
     the paths it drove."""
     topk_on_card()
     launches = canary_phase()
     launches += compare_phase(seed)
-    prep_slab_timing(card)
     launches += scale_phase(seed, card)
     return launches
 
@@ -942,7 +1155,7 @@ def _mode_files(seed: int, query, n: int | None = None):
         yield f"m{i:05d}.aif", f
 
 
-def modes_canary() -> int:
+def modes_canary() -> Counter:
     """The planted-match canary on reduced databases: the families at
     1e-4 and their ``[raw]`` runs at 4e-3."""
     import torch
@@ -950,7 +1163,7 @@ def modes_canary() -> int:
     from strugatzki_tpu_torch.parallel.canary import (format_report,
                                                       run_batch_canary)
 
-    total = 0
+    total = Counter()
     for kw in (dict(cache_spectra="bf16"),
                dict(storage_dtype=torch.bfloat16)):
         label = ", ".join(f"{k}={v}" for k, v in kw.items())
@@ -964,7 +1177,7 @@ def modes_canary() -> int:
     return total
 
 
-def modes_compare(seed: int) -> int:
+def modes_compare(seed: int) -> Counter:
     """64 seeded files: the compact raw traces against a full-precision
     cache over every valid window, then databases A (memmap, compact) and
     B (bf16 features, compact) on CUDA against the same on the CPU."""
@@ -1040,7 +1253,7 @@ def modes_compare(seed: int) -> int:
     return launches
 
 
-def modes_phase(seed: int, card: str) -> int:
+def modes_phase(seed: int, card: str) -> Counter:
     """The capacity modes at the north-star deployment: database A
     (memmap raw store from a generator, f32 features, compact cache, device
     re-rank) and B (in memory, bf16 features, compact cache, host f64
@@ -1533,8 +1746,8 @@ def analyses_phase(seed: int, card: str, dev: str = "cuda") -> None:
         os.makedirs(snd)
         os.makedirs(db)
         write_analysis_sounds(snd, seed)
-        prep.KERNEL_LAUNCHES = 0
-        prep.REFERENCE_CALLS = 0
+        prep.KERNEL_LAUNCHES = prep.ONE_PASS_LAUNCHES = 0
+        prep.TWO_PASS_LAUNCHES = prep.REFERENCE_CALLS = 0
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             require(cli(["-f", "-d", db, "--device", dev, snd]) == 0,
@@ -1585,11 +1798,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.load("prep")
     info = _build.build_info["prep"]
-    print(f"build: csrc/prep.cu with nvcc {' '.join(_build.NVCC_FLAGS)} in "
-          f"{info['seconds']:.2f} s ({time.perf_counter() - t0:.2f} s with "
-          f"loading)")
+    print(f"build: csrc/prep.cu (both prep variants) with nvcc "
+          f"{' '.join(_build.NVCC_FLAGS)} in {info['seconds']:.2f} s "
+          f"({time.perf_counter() - t0:.2f} s with loading)")
     for line in info["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if ("registers" in line or "Compiling entry" in line
+                or "spill" in line):
             print(f"build: {line.strip()}")
 
     walls = []
@@ -1600,7 +1814,7 @@ def main(argv=None) -> int:
         walls.append(f"{phase} {time.perf_counter() - t0:.1f} s")
         return out
 
-    err, ms, plain_ms = timed("kernel", kernel_phase)
+    kernels = timed("kernel", kernel_phase)
     launches = timed("slice", slice_phase)
     launches += timed("database", database_phase)
     launches += timed("modes", modes_phase)
@@ -1608,11 +1822,13 @@ def main(argv=None) -> int:
     print(f"phases: wall {', '.join(walls)}")
 
     print(json.dumps({"kernels": [{
-        "name": "prep", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "strugatzki_tpu_torch/csrc/prep.cu",
         "replaces": "strugatzki_tpu/kernels/pallas_prep.py:39",
-        "launches": launches, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "launches": launches[name], "max_abs_err": k["err"],
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "shape": k["shape"]}
+        for name, k in kernels.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,20 +5,20 @@ extraction (``-f``), database statistics (``--stats``), the
 punch-in/punch-out correlation search (``-c``), novelty segmentation
 (``-s``), the self-similarity image (``-x``) and the cross-similarity vector
 (``-y``), plus the resident ``FeatureDatabase`` serving layer, all on one
-device.  The database preparation kernel is hand-written CUDA for Hopper
+device.  The database preparation kernels are hand-written CUDA for Hopper
 (``csrc/prep.cu``); the rest is plain PyTorch.  Configs, XML sidecars,
-feature files and the host selection replays are the JAX package's own
-host-only modules or verbatim copies, so both packages read and write the
-same artifacts.  The package imports torch, never jax.
+feature files and the host selection replays are copies of the JAX
+package's host modules, so both packages read and write the same
+artifacts.  The package imports torch, never jax, and nothing of
+``strugatzki_tpu``.
 """
 
-from strugatzki_tpu.config import (NORMALIZE_NAME, Break, ChannelsBehavior,
-                                   ColorScheme, CorrelationConfig,
-                                   CrossSimilarityConfig, ExtractionConfig,
-                                   Match, Punch, SegmentationConfig,
-                                   SelfSimilarityConfig)
-from strugatzki_tpu.runtime.processor import Aborted, Processor, Progress, Result
-from strugatzki_tpu.span import Span
+from .config import (NORMALIZE_NAME, Break, ChannelsBehavior, ColorScheme,
+                     CorrelationConfig, CrossSimilarityConfig,
+                     ExtractionConfig, Match, Punch, SegmentationConfig,
+                     SelfSimilarityConfig)
+from .runtime.processor import Aborted, Processor, Progress, Result
+from .span import Span
 
 __version__ = "0.1.0"
 

@@ -20,14 +20,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from strugatzki_tpu.analysis.common import (feat_to_full, full_to_feat,
-                                            load_norm, read_features)
-from strugatzki_tpu.analysis.topk import SimSortedSet
-from strugatzki_tpu.config import CorrelationConfig, ExtractionConfig, Match
-from strugatzki_tpu.kernels import mathref as M
-from strugatzki_tpu.runtime.processor import Processor, ProcessorFactory
-from strugatzki_tpu.span import Span, spacing
-
+from ..analysis.common import (feat_to_full, full_to_feat,
+                               load_norm, read_features)
+from ..analysis.topk import SimSortedSet
+from ..config import CorrelationConfig, ExtractionConfig, Match
+from ..kernels import mathref as M
+from ..runtime.processor import Processor, ProcessorFactory
+from ..span import Span, spacing
 from ..kernels import corr as K
 from ..kernels.prep import prepare_database
 from ..parallel.sweep import _batched_traces, pad_stack

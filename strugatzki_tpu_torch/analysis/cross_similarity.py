@@ -14,13 +14,12 @@ Like the JAX package, the output holds the evident intent's ``len2 − len1 +
 
 from __future__ import annotations
 
-from strugatzki_tpu.analysis.common import (full_to_feat, load_norm,
-                                            normalized, read_features)
-from strugatzki_tpu.config import CrossSimilarityConfig, ExtractionConfig
-from strugatzki_tpu.io import audiofile as af
-from strugatzki_tpu.runtime.processor import Processor, ProcessorFactory
-from strugatzki_tpu.span import Span
-
+from ..analysis.common import (full_to_feat, load_norm,
+                               normalized, read_features)
+from ..config import CrossSimilarityConfig, ExtractionConfig
+from ..io import audiofile as af
+from ..runtime.processor import Processor, ProcessorFactory
+from ..span import Span
 from ..kernels import corr as K
 from .correlation import InputTemplate, sliding_traces
 

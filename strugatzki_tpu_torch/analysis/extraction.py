@@ -14,10 +14,9 @@ import traceback
 
 import numpy as np
 
-from strugatzki_tpu.config import ChannelsBehavior, ExtractionConfig
-from strugatzki_tpu.io import audiofile as af
-from strugatzki_tpu.runtime.processor import Processor, ProcessorFactory
-
+from ..config import ChannelsBehavior, ExtractionConfig
+from ..io import audiofile as af
+from ..runtime.processor import Processor, ProcessorFactory
 from ..dsp.frontend import (extract_features, extract_features_batch,
                             extract_features_streaming, finalize_features,
                             num_output_frames)
@@ -49,7 +48,7 @@ def fix_nans(features: np.ndarray, chunk: int = 1024) -> np.ndarray:
     value to 0 at every ``chunk`` boundary (NonRealtimeProcessor.scala:178-190:
     ``lasts`` is re-allocated per temp-file chunk)."""
     out = np.array(features, dtype=np.float32, order="C")  # one copy
-    from strugatzki_tpu.io import native as _native
+    from ..io import native as _native
     if _native.fix_nans(out, chunk):
         return out
     num_ch, total = out.shape

@@ -16,13 +16,12 @@ from typing import List
 import numpy as np
 import torch
 
-from strugatzki_tpu.analysis.common import (FeatureSource, feat_to_full,
-                                            full_to_feat, load_norm,
-                                            normalized)
-from strugatzki_tpu.analysis.topk import SimSortedSet
-from strugatzki_tpu.config import Break, SegmentationConfig
-from strugatzki_tpu.runtime.processor import Processor, ProcessorFactory
-
+from ..analysis.common import (FeatureSource, feat_to_full,
+                               full_to_feat, load_norm,
+                               normalized)
+from ..analysis.topk import SimSortedSet
+from ..config import Break, SegmentationConfig
+from ..runtime.processor import Processor, ProcessorFactory
 from ..kernels import corr as K
 from ..parallel.sweep import batched_novelty_traces, reject_mesh
 from ..runtime.device import resolve

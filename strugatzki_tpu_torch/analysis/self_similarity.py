@@ -32,15 +32,14 @@ from collections import deque
 import numpy as np
 import torch
 
-from strugatzki_tpu.analysis.common import (full_to_feat, load_norm,
-                                            normalized, read_features)
-from strugatzki_tpu.config import (ColorScheme, ExtractionConfig,
-                                   SelfSimilarityConfig)
-from strugatzki_tpu.runtime.processor import Processor, ProcessorFactory
-from strugatzki_tpu.util import palette as P
-from strugatzki_tpu.util.palette import apply_palette
-from strugatzki_tpu.util.png import write_png, write_png_rows
-
+from ..analysis.common import (full_to_feat, load_norm,
+                               normalized, read_features)
+from ..config import (ColorScheme, ExtractionConfig,
+                      SelfSimilarityConfig)
+from ..runtime.processor import Processor, ProcessorFactory
+from ..util import palette as P
+from ..util.palette import apply_palette
+from ..util.png import write_png, write_png_rows
 from ..kernels import corr as K
 from ..runtime.device import resolve
 
@@ -318,7 +317,7 @@ def _pix_to_rgb(pix_vals: np.ndarray, gray: bool) -> np.ndarray:
     gathered through the (possibly drop-in) host table."""
     if gray:
         return np.stack([pix_vals, pix_vals, pix_vals], axis=-1)
-    from strugatzki_tpu.util.palette import lookup
+    from ..util.palette import lookup
     return lookup(pix_vals)
 
 

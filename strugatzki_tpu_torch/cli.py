@@ -1,7 +1,9 @@
 """Command-line interface of the PyTorch port.
 
-The same switches and transcripts as ``strugatzki_tpu.cli`` (whose parser
-helpers and formatting it reuses):
+The same switches, formatting and transcripts as ``strugatzki_tpu.cli``
+(Strugatzki.scala): seconds become sample frames only at this boundary,
+progress renders as 25 ``#`` characters, similarities print as percentages
+and boosts as dB:
 
     python -m strugatzki_tpu_torch.cli -f [--device D] [-d dir] inputs...
     python -m strugatzki_tpu_torch.cli --stats -d dir
@@ -17,22 +19,121 @@ not read ``STRUGATZKI_MESH``.
 
 from __future__ import annotations
 
+import argparse
+import math
 import os
 import sys
 
 import numpy as np
 
-from strugatzki_tpu.cli import (_USAGE, NAME, _fail, _go, _mk_span, _parser,
-                                _secs_to_frames, to_db_str, to_percent_str)
-from strugatzki_tpu.config import (NORMALIZE_NAME, ChannelsBehavior,
-                                   CorrelationConfig, CrossSimilarityConfig,
-                                   ExtractionConfig, Punch,
-                                   SegmentationConfig, SelfSimilarityConfig)
-from strugatzki_tpu.io import audiofile as af
-from strugatzki_tpu.io.formats import AIFF
-from strugatzki_tpu.span import Span
+from .config import (NORMALIZE_NAME, ChannelsBehavior, CorrelationConfig,
+                     CrossSimilarityConfig, ExtractionConfig, Punch,
+                     SegmentationConfig, SelfSimilarityConfig)
+from .io import audiofile as af
+from .io.formats import AIFF
+from .runtime.processor import Progress, Result
+from .span import Span
 
 __all__ = ["main"]
+
+NAME = "Strugatzki"
+
+
+# ---------------------------------------------------------------------------
+# formatting (Strugatzki.scala:40-66, 215-217)
+# ---------------------------------------------------------------------------
+
+def to_percent_str(d: float) -> str:
+    # Java DecimalFormat: NaN takes neither prefix nor suffix; infinities
+    # render as the ∞ symbol with the suffix applied
+    if math.isnan(d):
+        return "NaN"
+    if math.isinf(d):
+        return "-∞%" if d < 0 else "∞%"
+    return f"{d * 100:.1f}%"
+
+
+def to_db_str(amp: float) -> str:
+    # mirror Java ampToDB + DecimalFormat: log10 of a negative (or NaN)
+    # amp is NaN (bare, no suffix); 0 → -∞ dB; +∞ keeps its sign
+    if math.isnan(amp) or amp < 0:
+        return "NaN"
+    db = 20 * math.log10(amp) if amp > 0 else float("-inf")
+    if math.isinf(db):
+        return "-∞ dB" if db < 0 else "∞ dB"
+    return f"{db:.1f} dB"
+
+
+class _ProgressBar:
+    """25-char ``#`` bar (Strugatzki.scala:205-210)."""
+
+    def __init__(self) -> None:
+        self.last = 0
+
+    def __call__(self, p: float) -> None:
+        i = int(p * 25)
+        while self.last < i:
+            print("#", end="", flush=True)
+            self.last += 1
+
+
+def _go(factory, config):
+    """Run a processor to completion with the progress bar; return the
+    result value or print the failure (Strugatzki.scala:95-99)."""
+    bar = _ProgressBar()
+    events = {}
+
+    def observer(e):
+        if isinstance(e, Progress):
+            bar(e.fraction)
+        elif isinstance(e, Result):
+            events["result"] = e
+
+    proc = factory.run(config, observer)
+    res = proc.ready()
+    return events.get("result", res)
+
+
+def _fail(res: Result) -> None:
+    if res.is_aborted:
+        print("  Aborted")
+    else:
+        print("  Failed: ")
+        import traceback
+        traceback.print_exception(type(res.failure), res.failure,
+                                  res.failure.__traceback__)
+
+
+def _secs_to_frames(s: float, sample_rate: float) -> int:
+    return int(s * sample_rate + 0.5)
+
+
+def _mk_span(start, stop, sr) -> Span:
+    if start is not None and stop is not None:
+        s0, s1 = _secs_to_frames(start, sr), _secs_to_frames(stop, sr)
+        if s1 < s0:
+            # de.sciss.span.Span construction requires start <= stop
+            raise SystemExit("requirement failed: invalid span "
+                             f"({s0} > {s1})")
+        return Span(s0, s1)
+    if start is not None:
+        return Span.from_(_secs_to_frames(start, sr))
+    if stop is not None:
+        return Span.until(_secs_to_frames(stop, sr))
+    return Span.all()
+
+
+def _parser(prog: str) -> argparse.ArgumentParser:
+    return argparse.ArgumentParser(prog=prog, allow_abbrev=False)
+
+
+_USAGE = f"""Usage: {NAME} <switch> [options]
+  -f, --feature          Feature extraction
+  -c, --correlate        Find best correlation with database
+  -s, --segmentation     Find segmentation breaks with a file
+  -x, --selfsimilarity   Create an image of the self similarity matrix
+  -y, --crosssimilarity  Create a cross-similarity vector file
+  --stats                Statistics from feature database"""
 
 
 def _add_device(p) -> None:

@@ -22,9 +22,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from strugatzki_tpu.dsp import constants as C
-from strugatzki_tpu.dsp import ml_tables as T
-
+from ..dsp import constants as C
+from ..dsp import ml_tables as T
 from ..convert import basis_to_torch
 from ..runtime.device import resolve
 

@@ -50,11 +50,11 @@ def prepare_template(mat: np.ndarray):
     """Center a template channel-group in f64; return (centered f32, mean, std).
 
     ``mean``/``std`` come from the single parity anchor
-    :func:`~strugatzki_tpu.kernels.mathref.stat` (MathUtil.stat,
+    :func:`~strugatzki_tpu_torch.kernels.mathref.stat` (MathUtil.stat,
     FeatureCorrelationImpl.scala:92-97) so the device template statistics
     can never desynchronize from the host mirror the tests anchor to.
     """
-    from strugatzki_tpu.kernels import mathref as M
+    from ..kernels import mathref as M
 
     m64 = np.asarray(mat, dtype=np.float64)
     mean, std = M.stat(m64, 0, m64.shape[1], 0, m64.shape[0])

@@ -46,10 +46,9 @@ from typing import TYPE_CHECKING, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from strugatzki_tpu.analysis.common import feat_to_full
-from strugatzki_tpu.config import ExtractionConfig, Match
-from strugatzki_tpu.span import Span
-
+from ..analysis.common import feat_to_full
+from ..config import ExtractionConfig, Match
+from ..span import Span
 from ..kernels import corr as K
 from ..kernels.prep import prepare_database
 from ..runtime.device import resolve
@@ -291,7 +290,7 @@ class QueryResult:
         a plain flat top-k — the serving convenience.  Passing
         ``num_per_file`` (or a ``min_spacing``) switches to the *exact
         replay* of the reference's stateful selection
-        (:func:`~strugatzki_tpu.analysis.topk.replay_selection`): candidates
+        (:func:`~strugatzki_tpu_torch.analysis.topk.replay_selection`): candidates
         are offered per file in ascending window order through the same
         entry-queue / spacing-collapse / merge machinery FeatureCorrelation
         uses, so the result equals the full reference search whenever the
@@ -316,7 +315,7 @@ class QueryResult:
             flat.sort(key=lambda t: -t[0])
             return [mk(i, j) for _, i, j in flat[:k_total]]
 
-        from strugatzki_tpu.analysis.topk import replay_selection
+        from ..analysis.topk import replay_selection
         per_file = []
         for i in range(self.sims.shape[0]):
             cands = [mk(i, j) for j in range(self.sims.shape[1])
@@ -360,7 +359,7 @@ class PunchQueryResult:
         is a plain flat top-k — the serving convenience.  Passing
         ``num_per_file`` (or a ``min_spacing``) runs the *exact replay* of
         the reference's stateful selection
-        (:func:`~strugatzki_tpu.analysis.topk.replay_selection`) over the
+        (:func:`~strugatzki_tpu_torch.analysis.topk.replay_selection`) over the
         returned candidates, offered per file in ascending punch-in-offset
         order exactly like FeatureCorrelationImpl's combine pass — so the
         result equals the full reference search whenever the device top-k
@@ -388,7 +387,7 @@ class PunchQueryResult:
             flat.sort(key=lambda t: -t[0])
             return [mk(i, j) for _, i, j in flat[:k_total]]
 
-        from strugatzki_tpu.analysis.topk import _Candidate, replay_selection
+        from ..analysis.topk import _Candidate, replay_selection
         per_file = []
         for i in range(self.sims.shape[0]):
             cands = [_Candidate(mk(i, j),
@@ -1695,11 +1694,11 @@ class FeatureDatabase:
               **kwargs):
         """Stage a database under the full observer protocol, like the
         analysis factories: returns a started
-        :class:`~strugatzki_tpu.runtime.processor.Processor` whose result
+        :class:`~strugatzki_tpu_torch.runtime.processor.Processor` whose result
         is the :class:`FeatureDatabase`; the observer receives
         :class:`Progress` events during staging and ``abort()`` cancels
         cooperatively (the reference's processor pattern)."""
-        from strugatzki_tpu.runtime.processor import Processor
+        from ..runtime.processor import Processor
 
         def body(proc):
             return FeatureDatabase(entries, norm,
@@ -1716,7 +1715,7 @@ class FeatureDatabase:
         """Load every ``*_feat.xml`` entry in a database folder."""
         import os
 
-        from strugatzki_tpu.analysis.common import load_norm, read_features
+        from ..analysis.common import load_norm, read_features
 
         _reject_unported(mesh)
         norm = load_norm(folder, num_coeffs) if normalize else None

@@ -19,6 +19,8 @@ from strugatzki_tpu.config import CrossSimilarityConfig, ExtractionConfig
 from strugatzki_tpu.io import audiofile as af
 from strugatzki_tpu.kernels import mathref as M
 from strugatzki_tpu.span import Span
+from strugatzki_tpu_torch import config as PC
+from strugatzki_tpu_torch import span as PS
 from strugatzki_tpu_torch.analysis import cross_similarity as PX
 
 
@@ -41,14 +43,27 @@ def _port_on_cpu(monkeypatch):
     monkeypatch.setattr(PX.CrossSimilarity, "device", "cpu")
 
 
+def _port_span(span):
+    return PS.Span(span.start, span.stop)
+
+
+def _port_config(**cfg):
+    """The port's own ``CrossSimilarityConfig`` of JAX-package fields."""
+    return PC.CrossSimilarityConfig(**{
+        k: _port_span(v) if isinstance(v, Span) else v
+        for k, v in cfg.items()})
+
+
 def _both(d, m1, m2, **cfg):
-    """Run the JAX and the port factory on one config, check that they
-    agree, and return the port's ``(sims, spec)``."""
+    """Run the JAX and the port factory on the same fields, each with its
+    own package's config, check that they agree, and return the port's
+    ``(sims, spec)``."""
     out = {}
-    for tag, factory in (("jax", JX.CrossSimilarity),
-                         ("port", PX.CrossSimilarity)):
+    for tag, factory, make in (
+            ("jax", JX.CrossSimilarity, CrossSimilarityConfig),
+            ("port", PX.CrossSimilarity, _port_config)):
         path = os.path.join(d, f"{tag}.aif")
-        c = CrossSimilarityConfig(meta_input1=m1, meta_input2=m2, **cfg)
+        c = make(meta_input1=m1, meta_input2=m2, **cfg)
         c.set_audio_output(path)
         factory.run(c).result(timeout=300)
         out[tag] = af.read(path)
@@ -151,10 +166,12 @@ def test_fuzz_matches_jax_and_mathref(tmp_path, seed):
 
 def test_copied_open_span_equals_the_original():
     extr = ExtractionConfig(audio_input="a.aif")
+    p_extr = PC.ExtractionConfig(audio_input="a.aif")
     for span in (Span.all(), Span(1000, 90000), Span.from_(5000),
                  Span.until(70000), Span(-3000, 10 ** 9), Span(0, 0)):
         for n in (0, 50, 200):
-            assert PX._open_span(extr, span, n) == JX._open_span(extr, span, n)
+            assert PX._open_span(p_extr, _port_span(span), n) == \
+                JX._open_span(extr, span, n)
 
 
 def test_rejections(tmp_path, monkeypatch):
@@ -164,7 +181,7 @@ def test_rejections(tmp_path, monkeypatch):
     m2 = _meta(tmp_path, "b", f, fft_size=2048)
 
     def run(**cfg):
-        c = CrossSimilarityConfig(meta_input1=m1, normalize=False, **cfg)
+        c = _port_config(meta_input1=m1, normalize=False, **cfg)
         c.set_audio_output(str(tmp_path / "o.aif"))
         return PX.CrossSimilarity.run(c).result(timeout=60)
 

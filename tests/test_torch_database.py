@@ -142,8 +142,10 @@ def test_query_matches_jax(entries, cache_spectra, nt, with_norm):
         w = n - 50 + 1
         _assert_sims(ps[i:i + 1, :w], js[i:i + 1, :w])
         _assert_boosts(pb[i, :w], jb[i, :w], np.isfinite(js[i, :w]))
-    assert [(m.file, m.punch, round(m.sim, 4)) for m in p.matches(50, 512)] \
-        == [(m.file, m.punch, round(m.sim, 4)) for m in j.matches(50, 512)]
+    assert [(m.file, m.punch.start, m.punch.stop, round(m.sim, 4))
+            for m in p.matches(50, 512)] \
+        == [(m.file, m.punch.start, m.punch.stop, round(m.sim, 4))
+            for m in j.matches(50, 512)]
 
 
 def test_query_batch_mixed_lengths_matches_jax(entries):

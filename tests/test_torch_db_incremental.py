@@ -16,9 +16,9 @@ import numpy as np
 import pytest
 
 from strugatzki_tpu.parallel import database as JD
-from strugatzki_tpu.runtime.processor import Aborted, Progress, Result
 from strugatzki_tpu_torch.analysis.correlation import InputTemplate as PT
 from strugatzki_tpu_torch.parallel import database as PD
+from strugatzki_tpu_torch.runtime.processor import Aborted, Progress, Result
 from test_torch_database import _tmpls, assert_query_equal
 
 
@@ -296,10 +296,9 @@ def test_from_folder_over_port_extraction(tmp_path):
     """``-f`` and ``--stats`` through the port's CLI, then ``from_folder``
     in both packages over that folder: the same files and equal query
     results, the planted passage first."""
-    from strugatzki_tpu.io import audiofile as af
-    from strugatzki_tpu.io.audiofile import AudioFileSpec, SampleFormat
-    from strugatzki_tpu.io.formats import AIFF
     from strugatzki_tpu_torch.cli import main
+    from strugatzki_tpu_torch.io import AIFF, AudioFileSpec, SampleFormat
+    from strugatzki_tpu_torch.io import audiofile as af
 
     snd, folder = tmp_path / "snd", tmp_path / "db"
     snd.mkdir()

@@ -1,7 +1,9 @@
-"""The port stands apart from JAX: its analyses (``-f``, ``--stats``,
-``-c``, ``-s``, ``-x``, ``-y``, and a resident ``FeatureDatabase`` queried,
-saved and loaded, in its capacity modes too) run without importing jax, and ``chip_smoke.py`` fails
-loudly where there is no CUDA card."""
+"""The port stands alone: its analyses (``-f``, ``--stats``, ``-c``,
+``-s``, ``-x``, ``-y``, and a resident ``FeatureDatabase`` queried, saved
+and loaded, in its capacity modes too) run without importing jax or the JAX
+package ``strugatzki_tpu``, in the repository and from a copy of the port
+with no ``strugatzki_tpu/`` beside it; and ``chip_smoke.py`` fails loudly
+where there is no CUDA card."""
 
 import os
 import shutil
@@ -78,7 +80,8 @@ _SLICE = textwrap.dedent("""
                                  storage_dtype="bf16", cache_spectra="bf16")
     top = modes.query_punch(t_in, t_out, 20, 60, k=2).matches(512, 1)
     assert top[0].file.endswith("src.aif") and top[0].sim > 0.999, top
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "strugatzki_tpu"))
     assert not loaded, loaded
     print("NO_JAX_OK")
 """)
@@ -98,6 +101,46 @@ def test_port_slice_runs_without_jax(tmp_path):
     assert r.returncode == 0, r.stdout + r.stderr
     assert "NO_JAX_OK" in r.stdout
     assert "Success." in r.stdout
+
+
+#: run first in the copy: any import of jax or the JAX package fails
+_REFUSE = textwrap.dedent("""
+    import sys
+
+    class _Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "strugatzki_tpu"):
+                raise ImportError(f"{name} is not part of the port")
+            return None
+
+    sys.meta_path.insert(0, _Refuse())
+""")
+
+
+def test_port_copy_runs_alone(tmp_path):
+    """The port, ``chip_smoke.py`` and the codec's sources copied without
+    ``strugatzki_tpu/``: the same slice runs there, builds its own codec,
+    and no import of jax or the JAX package is even attempted."""
+    root = tmp_path / "port"
+    shutil.copytree(os.path.join(REPO, "strugatzki_tpu_torch"),
+                    root / "strugatzki_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    (root / "native").mkdir()
+    for name in ("codec.cpp", "Makefile"):
+        shutil.copy(os.path.join(REPO, "native", name), root / "native")
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), root)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    work = tmp_path / "work"
+    work.mkdir()
+    r = subprocess.run([sys.executable, "-c", _REFUSE + _SLICE, str(work)],
+                       capture_output=True, text=True, cwd=root, env=env,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "NO_JAX_OK" in r.stdout
+    assert not (root / "strugatzki_tpu").exists()
+    assert (root / "native" / "libstrugatzki_codec.so").exists() or \
+        os.environ.get("STRUGATZKI_NO_NATIVE")
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

@@ -114,3 +114,34 @@ def test_cpu_tensors_take_the_reference_and_never_the_kernel():
                                 torch.from_numpy(norm),
                                 torch.from_numpy(lens))
     assert P.KERNEL_LAUNCHES == k0
+
+
+@pytest.mark.parametrize("B,C,T,want", [
+    (2048, 14, 10752, 8),      # the staging slab: 8 CTAs of 73.5 KiB
+    (32, 14, 11925, 16),       # a -c chunk: one wave, spread twice as wide
+    (7, 14, 3000, 6),
+    (2048, 14, 33000, 8),      # the longest files a cluster holds
+    (2048, 14, 33300, None),   # longer: the two-pass kernel
+    (65, 14, 40448, None),
+    (5, 14, 3, 2),
+])
+def test_one_pass_cluster_rule(B, C, T, want):
+    """The wrapper's choice between the kernels, made from the shape alone
+    (132 SMs, an H100 SXM): a cluster size where a file fits 8 CTAs'
+    shared memory, None where it does not."""
+    nc = P.one_pass_cluster(B, C, T, 132)
+    assert nc == want
+    if nc is not None:
+        assert P.one_pass_smem(C, T, nc) <= P._MAX_DYN_SMEM
+        assert nc * P.one_pass_smem(C, T, nc) >= C * T * 4
+    else:
+        assert P.one_pass_smem(C, T, P.MAX_CLUSTER) > P._MAX_DYN_SMEM
+
+
+def test_variant_counters_stay_apart_from_the_reference():
+    feats, lens, norm = _batch(seed=1)
+    before = (P.KERNEL_LAUNCHES, P.ONE_PASS_LAUNCHES, P.TWO_PASS_LAUNCHES)
+    P.prepare_database(feats, norm, lens, device="cpu")
+    assert (P.KERNEL_LAUNCHES, P.ONE_PASS_LAUNCHES,
+            P.TWO_PASS_LAUNCHES) == before
+    assert P.KERNEL_LAUNCHES == P.ONE_PASS_LAUNCHES + P.TWO_PASS_LAUNCHES

@@ -30,6 +30,7 @@ from strugatzki_tpu.span import Span
 from strugatzki_tpu_torch.analysis import segmentation as PS
 from strugatzki_tpu_torch.kernels import corr as PK
 from strugatzki_tpu_torch.parallel import sweep as PW
+from test_torch_host import to_port
 from test_segmentation import (_features_with_sections,
                                _scala_reference_segmentation)
 
@@ -160,7 +161,8 @@ def test_fuzz_matches_jax_and_transcription(seed):
         num_breaks=int(rng.integers(1, 8)),
         min_spacing=int(rng.integers(0, 50)) * STEP).build()
 
-    ours = PS.segment_features(feats, norm, STEP, cfg, device="cpu")
+    pcfg = to_port(cfg)
+    ours = PS.segment_features(feats, norm, STEP, pcfg, device="cpu")
     _same_breaks(ours, JS.segment_features(feats, norm, STEP, cfg), 2e-5)
     _same_breaks(ours, _scala_reference_segmentation(feats, norm, STEP, cfg),
                  3e-5)
@@ -186,7 +188,8 @@ def test_scala_transcription_cases(case):
         cfg = SegmentationConfig(normalize=False, corr_len=40 * STEP,
                                  num_breaks=1, min_spacing=0)
     cfg = cfg.build()
-    ours = PS.segment_features(feats, norm, STEP, cfg, device="cpu")
+    pcfg = to_port(cfg)
+    ours = PS.segment_features(feats, norm, STEP, pcfg, device="cpu")
     _same_breaks(ours, _scala_reference_segmentation(feats, norm, STEP, cfg),
                  2e-5)
     _same_breaks(ours, JS.segment_features(feats, norm, STEP, cfg), 2e-5)
@@ -196,7 +199,8 @@ def test_finds_section_boundaries():
     feats = _features_with_sections(seed=7, T=900)
     cfg = SegmentationConfig(normalize=False, corr_len=30 * STEP,
                              num_breaks=2, min_spacing=60 * STEP).build()
-    breaks = PS.segment_features(feats, None, STEP, cfg, device="cpu")
+    pcfg = to_port(cfg)
+    breaks = PS.segment_features(feats, None, STEP, pcfg, device="cpu")
     positions = sorted(b.pos // STEP for b in breaks)
     assert abs(positions[0] - 300) < 20
     assert abs(positions[1] - 600) < 20
@@ -211,15 +215,16 @@ def test_batch_matches_jax_and_single_files():
     mats.append(mats[0][:, :0])
     cfg = SegmentationConfig(normalize=False, corr_len=20 * STEP,
                              num_breaks=3, min_spacing=15 * STEP).build()
-    got = PS.segment_features_batch(mats, None, STEP, cfg, device="cpu")
+    pcfg = to_port(cfg)
+    got = PS.segment_features_batch(mats, None, STEP, pcfg, device="cpu")
     want = JS.segment_features_batch(mats, None, STEP, cfg)
     assert len(got) == len(want) == 5 and got[4] == want[4] == []
     for g, w, m in zip(got[:4], want[:4], mats):
         _same_breaks(g, w, 2e-5)
-        _same_breaks(g, PS.segment_features(m, None, STEP, cfg,
+        _same_breaks(g, PS.segment_features(m, None, STEP, pcfg,
                                             device="cpu"), 2e-5)
     with pytest.raises(ValueError):
-        PS.segment_features_batch([mats[0], mats[0][:5]], None, STEP, cfg,
+        PS.segment_features_batch([mats[0], mats[0][:5]], None, STEP, pcfg,
                                   device="cpu")
 
 
@@ -239,10 +244,11 @@ def test_silence_shorter_than_the_window():
     feats = _with_silence(4, 700, 400, 430)          # 30 frames < 2·20
     cfg = SegmentationConfig(normalize=False, corr_len=20 * STEP,
                              num_breaks=6, min_spacing=10 * STEP).build()
-    xs, nw, _, h = PS._novelty_prep(feats, None, STEP, cfg)
+    pcfg = to_port(cfg)
+    xs, nw, _, h = PS._novelty_prep(feats, None, STEP, pcfg)
     sims = PK.novelty_trace(torch.from_numpy(xs), h, 0.5)[:nw].numpy()
     assert np.isfinite(sims).all()
-    ours = PS.segment_features(feats, None, STEP, cfg, device="cpu")
+    ours = PS.segment_features(feats, None, STEP, pcfg, device="cpu")
     _same_breaks(ours, JS.segment_features(feats, None, STEP, cfg), 2e-5)
     _same_breaks(ours, _scala_reference_segmentation(feats, None, STEP, cfg),
                  3e-5)
@@ -260,7 +266,8 @@ def test_silence_longer_than_the_window_is_degenerate():
     feats = _with_silence(5, 800, start, stop)
     cfg = SegmentationConfig(normalize=False, corr_len=h * STEP,
                              num_breaks=6, min_spacing=10 * STEP).build()
-    xs, nw, _, _ = PS._novelty_prep(feats, None, STEP, cfg)
+    pcfg = to_port(cfg)
+    xs, nw, _, _ = PS._novelty_prep(feats, None, STEP, pcfg)
     got = PK.novelty_trace(torch.from_numpy(xs), h, 0.5)[:nw].numpy()
     want = np.asarray(JK.novelty_trace(jnp.asarray(xs), h,
                                        jnp.float32(0.5)))[:nw]
@@ -309,23 +316,25 @@ def test_abort_between_passes():
     feats = _features_with_sections()
     cfg = SegmentationConfig(normalize=False, corr_len=20 * STEP,
                              num_breaks=2).build()
+    pcfg = to_port(cfg)
     with pytest.raises(Stop):
-        PS.segment_features(feats, None, STEP, cfg, check_aborted=check,
+        PS.segment_features(feats, None, STEP, pcfg, check_aborted=check,
                             device="cpu")
 
 
 def test_mesh_and_missing_cuda_raise(monkeypatch):
     feats = _features_with_sections()
     cfg = SegmentationConfig(normalize=False, corr_len=20 * STEP).build()
+    pcfg = to_port(cfg)
     with pytest.raises(NotImplementedError, match="item 14"):
-        PS.segment_features(feats, None, STEP, cfg, mesh=object(),
+        PS.segment_features(feats, None, STEP, pcfg, mesh=object(),
                             device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
-        PS.segment_features_batch([feats], None, STEP, cfg, mesh=object(),
+        PS.segment_features_batch([feats], None, STEP, pcfg, mesh=object(),
                                   device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         PW.batched_novelty_traces(np.zeros((1, 14, 64), np.float32), 4, 0.5,
                                   mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        PS.segment_features(feats, None, STEP, cfg, device="cuda")
+        PS.segment_features(feats, None, STEP, pcfg, device="cuda")

@@ -26,7 +26,10 @@ from strugatzki_tpu.io import audiofile as af
 from strugatzki_tpu.kernels import corr as JK
 from strugatzki_tpu.kernels import mathref as M
 from strugatzki_tpu_torch.analysis import self_similarity as PS
+from strugatzki_tpu_torch.config import \
+    SelfSimilarityConfig as PSelfSimilarityConfig
 from strugatzki_tpu_torch.kernels import corr as PK
+from test_torch_host import to_port
 
 
 def _x(seed, c, t):
@@ -417,12 +420,12 @@ def test_factory_streaming_branch_equals_matrix_branch(tmp_path, monkeypatch):
     monkeypatch.setattr(SelfSimilarity, "device", "cpu")
     cfg = dict(meta_input=meta, corr_len=15 * 512, decimation=1,
                normalize=False, colors="psycho")
-    SelfSimilarity.run(SelfSimilarityConfig(
+    SelfSimilarity.run(PSelfSimilarityConfig(
         image_output=str(tmp_path / "mat.png"), **cfg)).result(timeout=300)
     progress = []
     monkeypatch.setattr(PS, "_STREAM_EXTENT", 50)    # extent 131 > 50
     SelfSimilarity.run(
-        SelfSimilarityConfig(image_output=str(tmp_path / "str.png"), **cfg),
+        PSelfSimilarityConfig(image_output=str(tmp_path / "str.png"), **cfg),
         observer=progress.append).result(timeout=300)
     mat, streamed = (decode_png(tmp_path / n) for n in ("mat.png", "str.png"))
     assert mat.shape == (131, 131, 3)
@@ -447,7 +450,7 @@ def test_factory_png_level_policy(tmp_path, monkeypatch):
     monkeypatch.setattr(SelfSimilarity, "device", "cpu")
 
     def run():
-        SelfSimilarity.run(SelfSimilarityConfig(
+        SelfSimilarity.run(PSelfSimilarityConfig(
             meta_input=meta, image_output=str(tmp_path / "o.png"),
             corr_len=15 * 512, normalize=False)).result(timeout=300)
 
@@ -477,8 +480,8 @@ def test_factory_cross_mode_and_span_match_jax(tmp_path, monkeypatch):
                normalize=False, colors="gray", span=Span(10 * 512, 200 * 512))
     JSS.run(SelfSimilarityConfig(image_output=str(tmp_path / "j.png"),
                                  **cfg)).result(timeout=300)
-    SelfSimilarity.run(SelfSimilarityConfig(
-        image_output=str(tmp_path / "p.png"), **cfg)).result(timeout=300)
+    SelfSimilarity.run(to_port(SelfSimilarityConfig(
+        image_output=str(tmp_path / "p.png"), **cfg))).result(timeout=300)
     got, want = decode_png(tmp_path / "p.png"), decode_png(tmp_path / "j.png")
     n = 190 - 30 + 1
     assert got.shape == want.shape == (n, n, 3)
@@ -501,9 +504,9 @@ def test_factory_rejections(tmp_path, monkeypatch, bad):
     else:
         extra.update(bad)
     monkeypatch.setattr(SelfSimilarity, "device", "cpu")
-    cfg = SelfSimilarityConfig(meta_input=meta,
-                               image_output=str(tmp_path / "o.png"),
-                               corr_len=10 * 512, normalize=False, **extra)
+    cfg = PSelfSimilarityConfig(meta_input=meta,
+                                image_output=str(tmp_path / "o.png"),
+                                corr_len=10 * 512, normalize=False, **extra)
     with pytest.raises(ValueError):
         SelfSimilarity.run(cfg).result(timeout=60)
     assert not (tmp_path / "o.png").exists()

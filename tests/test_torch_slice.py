@@ -19,7 +19,8 @@ import struct
 import numpy as np
 import pytest
 
-from strugatzki_tpu import CorrelationConfig, Punch, Span
+import strugatzki_tpu as J
+import strugatzki_tpu_torch as P
 from strugatzki_tpu.analysis import extraction as JE
 from strugatzki_tpu.analysis.correlation import FeatureCorrelation as JFC
 from strugatzki_tpu.cli import main as jax_main
@@ -27,6 +28,7 @@ from strugatzki_tpu.config import ChannelsBehavior
 from strugatzki_tpu.io import audiofile as af
 from strugatzki_tpu.io.audiofile import AudioFileSpec, SampleFormat
 from strugatzki_tpu.io.formats import AIFF
+from strugatzki_tpu_torch import io as pio
 from strugatzki_tpu_torch.analysis import extraction as PE
 from strugatzki_tpu_torch.analysis.correlation import FeatureCorrelation as PFC
 from strugatzki_tpu_torch.cli import main as port_main
@@ -67,13 +69,15 @@ CORR_ARGS = ["--in-start", "0.5", "--in-stop", "1.0", "--in-temp", "0.5",
              "--dur-min", "1.0", "--dur-max", "2.5", "-m", "3"]
 
 
-def _corr_config(db):
+def _corr_config(db, pkg):
+    """The search's config, built of ``pkg``'s own classes (``J`` or
+    ``P``)."""
     def fr(s):
         return int(s * SR + 0.5)
-    return CorrelationConfig(
+    return pkg.CorrelationConfig(
         database_folder=str(db), meta_input=str(db / "src_feat.xml"),
-        punch_in=Punch(Span(fr(0.5), fr(1.0)), 0.5),
-        punch_out=Punch(Span(fr(1.5), fr(2.0)), 0.5),
+        punch_in=pkg.Punch(pkg.Span(fr(0.5), fr(1.0)), 0.5),
+        punch_out=pkg.Punch(pkg.Span(fr(1.5), fr(2.0)), 0.5),
         min_punch=fr(1.0), max_punch=fr(2.5), num_matches=3)
 
 
@@ -101,12 +105,12 @@ def slice_runs(tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(JFC, "skip_nan", True)
     monkeypatch.setattr(PFC, "skip_nan", True)
     jax_out = _run(jax_main, db, snd, capsys, [])
-    jax_matches = JFC.run(_corr_config(db)).result()
+    jax_matches = JFC.run(_corr_config(db, J)).result()
     shutil.move(str(db), str(tmp_path / "db_jax"))
     db.mkdir()
     port_out = _run(port_main, db, snd, capsys, ["--device", "cpu"])
     monkeypatch.setattr(PFC, "device", "cpu")
-    port_matches = PFC.run(_corr_config(db)).result()
+    port_matches = PFC.run(_corr_config(db, P)).result()
     return tmp_path, jax_out, port_out, jax_matches, port_matches
 
 
@@ -127,7 +131,8 @@ def test_slice_agrees_with_jax(slice_runs):
 
     assert len(port_matches) == len(jax_matches) == 3
     for p, j in zip(port_matches, jax_matches):
-        assert (p.file, p.punch) == (j.file, j.punch)
+        assert (p.file, p.punch.start, p.punch.stop) == (
+            j.file, j.punch.start, j.punch.stop)
         assert abs(p.sim - j.sim) < 3e-5
         np.testing.assert_allclose([p.boost_in, p.boost_out],
                                    [j.boost_in, j.boost_out], rtol=1e-4)
@@ -148,12 +153,13 @@ def test_streaming_extraction_matches_jax(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(JE, "STREAMING_THRESHOLD", 20000)
     monkeypatch.setattr(PE, "STREAMING_THRESHOLD", 20000)
     out = {}
-    for tag, mod, extra in (("jax", JE, {}), ("port", PE, {"device": "cpu"})):
+    for tag, mod, pkg, extra in (("jax", JE, J, {}),
+                                 ("port", PE, P, {"device": "cpu"})):
         db = tmp_path / tag
         db.mkdir()
         assert mod.extract_batch_cli([str(snd / "src.aif"),
                                       str(snd / "tgt.aif")],
-                                     str(db), ChannelsBehavior.MIX,
+                                     str(db), pkg.ChannelsBehavior.MIX,
                                      **extra) == 0
         out[tag] = capsys.readouterr().out
     assert out["port"] == out["jax"]
@@ -173,14 +179,20 @@ def test_copied_extraction_helpers_equal_the_originals():
     assert not np.isnan(PE.fix_nans(feats)).any()
 
     block = rng.uniform(-0.5, 0.5, (2, 100)).astype(np.float32)
-    for fmt in (SampleFormat.INT16, SampleFormat.FLOAT):
+    for fmt in ("INT16", "FLOAT"):
         for chans in (1, 2):
-            spec = AudioFileSpec(AIFF, fmt, chans, 44100.0)
-            for mode in (ChannelsBehavior.MIX, ChannelsBehavior.FIRST,
-                         ChannelsBehavior.LAST):
+            spec = AudioFileSpec(AIFF, getattr(SampleFormat, fmt), chans,
+                                 44100.0)
+            p_spec = pio.AudioFileSpec(pio.AIFF,
+                                       getattr(pio.SampleFormat, fmt), chans,
+                                       44100.0)
+            for mode in ("MIX", "FIRST", "LAST"):
                 class Cfg:
-                    channels_behavior = mode
-                a = PE._collapse_mono(block[:chans], spec, Cfg)
+                    channels_behavior = getattr(ChannelsBehavior, mode)
+
+                class PCfg:
+                    channels_behavior = getattr(P.ChannelsBehavior, mode)
+                a = PE._collapse_mono(block[:chans], p_spec, PCfg)
                 b = JE._collapse_mono(block[:chans], spec, Cfg)
                 assert a.dtype == b.dtype
                 np.testing.assert_array_equal(a, b)
