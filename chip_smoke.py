@@ -69,12 +69,30 @@ drives the README quick start through the port (``strugatzki_tpu_torch``):
    CPU, its length, rate and peak.  It prints each analysis's first and
    warm wall time, the peak device memory, and for ``-x`` a profile of the
    device time beside the host's colorize and deflate.
+7. mesh: the files mesh, every shard on ``cuda:0`` (4 shards: the sharding's
+   correctness and cost on one card, not its scaling across cards).  The
+   serving deployment staged with the spectra cache under the mesh (the
+   single-device database gone first): the planted file first in ``query``
+   and ``query_punch``, all four families and the exact re-rank equal to the
+   single-device database's results (sims 3e-5, frames where decided),
+   staging seconds, latencies and peak memory; the slice's search with
+   ``FeatureCorrelation.mesh``, match for match with the unsharded search,
+   one prep launch per shard and chunk; a one-hour recording made from the
+   seed through ``sharded_extract_long`` (2e-5), ``sharded_long_file_trace``
+   with a 10 s template (3e-5) and ``sharded_long_novelty_trace`` at corrLen
+   44100 (2e-5) against the unsharded paths, with their seconds; ``-x`` of
+   the 3-minute piece at decimation 2 through ``SelfSimilarity.mesh`` (8
+   block pairs against the unsharded engine, the raster bit-equal to the
+   host quantization, the PNG decoded to its extent); and the repairs: the
+   novelty curve over 3 s of digital silence NaN at exactly the windows
+   inside it and the CPU curve elsewhere, and prep launches that leave
+   PyTorch's current device as it was.
 
 Every phase that drives a path of the port sets the prep kernels' counters
-to 0 just before and reads them just after: the slice and the database must
-launch the one-pass kernel (the database's long-file step the two-pass one)
-and never the plain version; the analyses (``-s``, ``-x``, ``-y``) prepare
-on the host and must not reach the plain version.
+to 0 just before and reads them just after: the slice, the database and the
+mesh must launch the one-pass kernel (the database's long-file step the
+two-pass one) and never the plain version; the analyses (``-s``, ``-x``,
+``-y``) prepare on the host and must not reach the plain version.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit from nvidia-smi, and the
@@ -1019,13 +1037,9 @@ def _require_planted(res, name: str, target: int):
     return q, p
 
 
-def scale_phase(seed: int, card: str) -> Counter:
-    """10,000 two-minute files staged with the spectra cache; the planted
-    file must come first in query and query_punch."""
-    import torch
-
-    from strugatzki_tpu_torch.parallel.database import FeatureDatabase
-
+def _scale_set(seed: int, phase: str = "database"):
+    """The serving deployment's files, made from the seed: ``(feats, query,
+    target, entries, norm)``, the planted punches in file ``target``."""
     rng = np.random.default_rng(seed + 2)
     t0 = time.perf_counter()
     feats = np.empty((SCALE_FILES, 14, SCALE_FRAMES), np.float32)
@@ -1039,10 +1053,25 @@ def scale_phase(seed: int, card: str) -> Counter:
         query[:, Q_OUT:Q_OUT + L_OUT]
     entries = [(f"s{i:05d}.aif", feats[i]) for i in range(SCALE_FILES)]
     norm = np.stack([np.zeros(14), np.ones(14)], 1).astype(np.float32)
-    print(f"database: scale: {SCALE_FILES} files x [14, {SCALE_FRAMES}] "
+    print(f"{phase}: scale: {SCALE_FILES} files x [14, {SCALE_FRAMES}] "
           f"f32 ({feats.nbytes / 1e9:.2f} GB) made in "
           f"{time.perf_counter() - t0:.1f} s")
+    return feats, query, target, entries, norm
 
+
+#: the single-device scale database's results (cache_spectra=True) by
+#: query family, kept as host arrays for the mesh phase
+SCALE_RESULTS: dict = {}
+
+
+def scale_phase(seed: int, card: str) -> Counter:
+    """10,000 two-minute files staged with the spectra cache; the planted
+    file must come first in query and query_punch."""
+    import torch
+
+    from strugatzki_tpu_torch.parallel.database import FeatureDatabase
+
+    feats, query, target, entries, norm = _scale_set(seed)
     t_in, t_out, calls = _scale_calls(query, norm)
 
     def stage_and_query(cache: bool, names):
@@ -1075,6 +1104,7 @@ def scale_phase(seed: int, card: str) -> Counter:
 
     (db, res), launches = counted("scale database, cache_spectra=True",
                                   lambda: stage_and_query(True, calls))
+    SCALE_RESULTS.update({name: r[0] for name, r in res.items()})
     q, p = _require_planted(res, entries[target][0], target)
     print(f"database: scale: planted {entries[target][0]} first in query "
           f"(frame {PLANT_IN}, sim {q.sims[target, 0]:.7f}) and query_punch "
@@ -1363,10 +1393,9 @@ def modes_phase(seed: int, card: str) -> Counter:
 
 #: BASELINE.json's "FeatureSegmentation: novelty break detection on 5-min
 #: recording (corrLen 44100, 20 breaks)": five sections of distinct timbres
-#: with frame-aligned boundaries, and digital silence inside one section.
-#: The silence is shorter than the 2 s window: a window inside a longer
-#: silence is 0/0 and carries FFT round-off that differs between devices
-#: (PERF.md, Findings)
+#: with frame-aligned boundaries, and digital silence inside one section,
+#: shorter than the 2 s window (a window inside a longer silence is 0/0:
+#: NaN, which the mesh phase checks)
 SEG_SECONDS = 300
 SEG_BOUNDS = (60, 120, 180, 240)
 SILENCE = (150.0, 151.5)
@@ -1764,6 +1793,339 @@ def analyses_phase(seed: int, card: str, dev: str = "cuda") -> None:
                 "the analyses reached the plain prep version")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the files mesh (every shard on the one card)
+# ---------------------------------------------------------------------------
+
+#: shards of the mesh phase's meshes, all on cuda:0: the sharding's
+#: correctness and its cost on one card, not its scaling across cards
+MESH_SHARDS = 4
+#: the long-broadcast recording of the sequence-sharded paths
+LONG_SECONDS = 3600
+LONG_TEMPLATE_AT, LONG_TEMPLATE_FRAMES = 150_000, 861     # a 10 s template
+#: the repair check: 3 s of digital silence inside 30 s, corrLen 44100
+SILENT_SECONDS, SILENT_AT, SILENT_LEN = 30, 12.0, 3.0
+
+
+def _mesh():
+    from strugatzki_tpu_torch.parallel.sweep import make_files_mesh
+    return make_files_mesh(["cuda:0"] * MESH_SHARDS)
+
+
+def mesh_scale(seed: int, card: str, mesh) -> Counter:
+    """The serving deployment staged with the spectra cache under the mesh,
+    after the single-device database is gone: the planted file first, and
+    all four families and the exact re-rank equal to the single-device
+    database's results."""
+    import torch
+
+    from strugatzki_tpu_torch.parallel.database import FeatureDatabase
+
+    if not SCALE_RESULTS:           # the phase run alone: stage one first
+        scale_phase(seed, card)
+    feats, query, target, entries, norm = _scale_set(seed, "mesh")
+    _, _, calls = _scale_calls(query, norm)
+
+    def stage_and_query():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        db = FeatureDatabase(entries, norm, cache_spectra=True, mesh=mesh)
+        t_stage = time.perf_counter() - t0
+        peak_stage = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = {n: _latency(lambda: calls[n](db), warm=3) for n in calls}
+        peak_query = torch.cuda.max_memory_allocated()
+        gb = sum(sh.xs.numel() * 4 + sum(x.numel() * 8 for x in sh.spectra)
+                 for sh in db._shards) / 1e9
+        print(f"mesh: scale: staged {SCALE_FILES} files over "
+              f"{db._num_shards} shards of {db._shards[0].xs.shape[0]} rows "
+              f"(T {db._raw.shape[2]}) with cache_spectra=True in "
+              f"{t_stage:.3f} s: {gb:.2f} GB resident on {card}")
+        for name, (_, first, warm) in res.items():
+            print(f"mesh: scale: {name}: first {first * 1e3:.3f} ms, warm "
+                  f"median of 3 {warm * 1e3:.3f} ms on {card}")
+        print(f"mesh: scale: torch.cuda.max_memory_allocated "
+              f"{peak_stage / 1e9:.3f} GB while staging, "
+              f"{peak_query / 1e9:.3f} GB over the queries on {card}")
+        return db, res
+
+    (db, res), launches = counted(f"{MESH_SHARDS}-shard scale database",
+                                  stage_and_query, "mesh")
+    per_shard = -(-(SCALE_FILES // MESH_SHARDS) // 2048)
+    require(launches["prep"] == MESH_SHARDS * per_shard,
+            f"{launches['prep']} prep launches, not {per_shard} a shard")
+    q, p = _require_planted(res, entries[target][0], target)
+    worst_s = worst_b = 0.0
+    for name, (got, _, _) in res.items():
+        s, b = _same_results([got], [SCALE_RESULTS[name]], [name], "mesh ")
+        worst_s, worst_b = max(worst_s, s), max(worst_b, b)
+    print(f"mesh: scale: planted {entries[target][0]} first in query (sim "
+          f"{q.sims[target, 0]:.7f}) and query_punch (sim "
+          f"{p.sims[target, 0]:.7f}); {', '.join(res)} against the "
+          f"single-device database: sims max |err| {worst_s:.3e} "
+          f"({SIM_TOL}), boosts max rel err {worst_b:.3e} ({BOOST_RTOL}), "
+          f"frames equal where decided; prep launches {per_shard} a shard")
+    del db, entries, feats
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_correlation(seed: int, card: str, mesh) -> Counter:
+    """The slice's 20-file search with ``FeatureCorrelation.mesh``: the
+    unsharded search's matches, one prep launch per shard-chunk."""
+    from strugatzki_tpu_torch import FeatureCorrelation
+    from strugatzki_tpu_torch.analysis.correlation import CHUNK_SIZE
+
+    with tempfile.TemporaryDirectory(prefix="strugatzki_mesh_") as tmp:
+        snd, db = os.path.join(tmp, "snd"), os.path.join(tmp, "db")
+        os.makedirs(snd)
+        os.makedirs(db)
+        target, start, stop = write_sounds(snd, seed)
+        want, _, _ = run_slice(snd, db)
+        FeatureCorrelation.mesh = mesh
+        try:
+            t0 = time.perf_counter()
+            got, launches = counted(
+                f"-c with a {MESH_SHARDS}-shard mesh",
+                lambda: FeatureCorrelation.run(_corr_config(db)).result(),
+                "mesh")
+            t_c = time.perf_counter() - t0
+        finally:
+            FeatureCorrelation.mesh = None
+    chunks = -(-DB_FILES // (-(-CHUNK_SIZE // MESH_SHARDS) * MESH_SHARDS))
+    require(launches["prep"] == MESH_SHARDS * chunks,
+            f"{launches['prep']} prep launches for {chunks} chunk(s)")
+    require([(m.file, m.punch.start, m.punch.stop) for m in got]
+            == [(m.file, m.punch.start, m.punch.stop) for m in want],
+            "sharded -c matches differ from the unsharded search")
+    err = max(abs(a.sim - b.sim) for a, b in zip(got, want))
+    require(err <= SIM_TOL, f"sharded -c sims differ by {err:.3e}")
+    check_matches(got, target, start, stop)
+    print(f"mesh: -c over {DB_FILES} files with {MESH_SHARDS} shards: "
+          f"{len(got)} matches equal to the unsharded search's match for "
+          f"match (sims max |err| {err:.3e}); {launches['prep']} one-pass "
+          f"launches = {MESH_SHARDS} shards x {chunks} chunk(s); "
+          f"{t_c:.3f} s on {card}")
+    return launches
+
+
+def mesh_long_file(seed: int, card: str, mesh) -> None:
+    """One hour of audio: the sequence-sharded extraction, template trace
+    and novelty curve against the unsharded paths on the card."""
+    import torch
+
+    from strugatzki_tpu_torch.analysis.correlation import (InputTemplate,
+                                                           sliding_traces)
+    from strugatzki_tpu_torch.dsp.frontend import extract_features
+    from strugatzki_tpu_torch.kernels import corr as K
+    from strugatzki_tpu_torch.parallel import sweep as W
+
+    rng = np.random.default_rng(seed + 4)
+    t0 = time.perf_counter()
+    audio = _sound(rng, LONG_SECONDS)
+    print(f"mesh: long: {LONG_SECONDS} s recording ({len(audio)} samples) "
+          f"made in {time.perf_counter() - t0:.1f} s")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    seq, t_seq = timed(lambda: extract_features(audio, float(SR),
+                                                device="cuda"))
+    shd, t_shd = timed(lambda: W.sharded_extract_long(audio, float(SR),
+                                                      mesh))
+    require(shd.shape == seq.shape, f"long features {shd.shape}")
+    e_f = float(np.abs(shd - seq).max())
+    require(e_f <= 2e-5, f"sharded extraction differs by {e_f:.3e}")
+
+    lo, hi = seq.min(axis=1, keepdims=True), seq.max(axis=1, keepdims=True)
+    x = ((seq - lo) / (hi - lo)).astype(np.float32)
+    xs, sh_t, sh_s = K.shift_per_group(x)
+    a = LONG_TEMPLATE_AT
+    tmpl = InputTemplate(x[:, a:a + LONG_TEMPLATE_FRAMES].copy())
+    (s1, b1), t_t1 = timed(lambda: sliding_traces(
+        xs, sh_t, sh_s, tmpl, x.shape[1], TEMP_WEIGHT, 8.0, device="cuda"))
+    (s4, b4), t_t4 = timed(lambda: W.sharded_long_file_trace(
+        xs, sh_t, tmpl, TEMP_WEIGHT, 8.0, mesh))
+    require(s4.shape == s1.shape, "long trace shape")
+    e_t = float(np.abs(s4 - s1).max())
+    require(e_t <= CROSS_TOL, f"sharded trace differs by {e_t:.3e}")
+    require(int(np.argmax(s4)) == a and s4[a] > 0.999, "long trace peak")
+
+    h = (CORR_LEN + STEP // 2) // STEP
+    n1, t_n1 = timed(lambda: K.novelty_trace(
+        torch.as_tensor(xs, device="cuda"), h, TEMP_WEIGHT).cpu().numpy())
+    n4, t_n4 = timed(lambda: W.sharded_long_novelty_trace(xs, h, TEMP_WEIGHT,
+                                                          mesh))
+    require(n4.shape == n1.shape and np.isfinite(n1).all(),
+            "long novelty shape")
+    e_n = float(np.abs(n4 - n1).max())
+    require(e_n <= NOVELTY_TOL, f"sharded novelty differs by {e_n:.3e}")
+    print(f"mesh: long: features [{seq.shape[0]}, {seq.shape[1]}]: "
+          f"sharded_extract_long {t_shd:.3f} s vs extract_features "
+          f"{t_seq:.3f} s, max |err| {e_f:.3e} (2e-5); sharded_long_file_"
+          f"trace (10 s template) {t_t4:.3f} s vs {t_t1:.3f} s, max |err| "
+          f"{e_t:.3e} ({CROSS_TOL}), peak at {a}; sharded_long_novelty_"
+          f"trace (corrLen {CORR_LEN}) {t_n4:.3f} s vs {t_n1:.3f} s, max "
+          f"|err| {e_n:.3e} ({NOVELTY_TOL}) on {card}")
+
+
+def mesh_selfsim(seed: int, card: str, mesh, db: str, out: str) -> None:
+    """``-x`` of the 3-minute piece at decimation 2 through
+    ``SelfSimilarity.mesh``: 8 block pairs against the unsharded engine,
+    the device raster of the sharded sims bit-equal to their host
+    quantization, and the PNG decoded to its extent."""
+    from strugatzki_tpu_torch import SelfSimilarity, SelfSimilarityConfig
+    from strugatzki_tpu_torch.analysis import self_similarity as SS
+    from strugatzki_tpu_torch.parallel.sweep import fetch
+
+    x = _prepared_piece(db)
+    h = (CORR_LEN + STEP // 2) // STEP
+    n, nb, res_m, _ = SS._prep_resident(x, x, h, 2, mesh=mesh)
+    _, _, res_1, _ = SS._prep_resident(x, x, h, 2, device="cuda")
+    pairs = list(dict.fromkeys([(0, 0), (0, nb - 1), (nb - 1, nb - 1),
+                                (1, 3), (2, nb // 2), (nb // 3, nb - 2),
+                                (3, 5), (nb // 2, nb // 2)]))
+    require(len(pairs) == 8, f"sampled pairs {pairs}")
+    parts = SS._dispatch_pairs_fast(res_m, res_m, pairs, TEMP_WEIGHT,
+                                    mesh=mesh)
+    got = fetch(parts)
+    want = SS._dispatch_pairs_fast(res_1, res_1, pairs, TEMP_WEIGHT)
+    err = float(np.abs(got - want.cpu().numpy()).max())
+    require(np.isfinite(got).all() and err <= GRAM_TOL,
+            f"sharded gram vs unsharded {err:.3e}")
+    pix = SS._device_pix("psycho", 1.0, 1.0, False)
+    vals = fetch([SS._apply_pix_stages(t, pix) for t in parts])
+    require(np.array_equal(SS._pix_to_rgb(vals.astype(np.uint16), False),
+                           SS._colorize(got, "psycho", 1.0, 1.0, False)),
+            "sharded device raster differs from the host quantization")
+
+    SelfSimilarity.mesh = mesh
+    try:
+        path = os.path.join(out, "self_d2_mesh.png")
+        cfg = SelfSimilarityConfig(
+            database_folder=db, meta_input=os.path.join(db, "piece_feat.xml"),
+            image_output=path, corr_len=CORR_LEN, decimation=2)
+        _, first, warm = _latency(lambda: SelfSimilarity.run(cfg).result(),
+                                  warm=1)
+    finally:
+        SelfSimilarity.mesh = None
+    i2 = (_aligned(sum(RECUR) / 2) // STEP) // 2
+    j2 = i2 + RECUR_SHIFT // 2
+    w, hh, rows = _png_rows(path, (n - 1 - j2,))
+    require((w, hh) == (n, n), f"{path}: {w}x{hh}, extent {n}")
+    top = SS._pix_to_rgb(np.uint16([1022, 1023]), False)
+    px = rows[n - 1 - j2][i2]
+    require((top == px).all(axis=-1).any(), f"recurrence pixel {px}")
+    print(f"mesh: -x decimation 2 (extent {n}) with {MESH_SHARDS} shards: "
+          f"8 block pairs {pairs} vs unsharded max |err| {err:.3e} "
+          f"({GRAM_TOL}), device raster bit-equal to the host quantization, "
+          f"PNG {w} x {hh} with the recurrence pixel {px.tolist()}; wall "
+          f"first {first:.3f} s, warm {warm:.3f} s on {card}")
+
+
+def mesh_repairs(seed: int, card: str, db: str) -> None:
+    """The 0/0 repair on the card: ``novelty_trace`` over 3 s of digital
+    silence at corrLen 44100 is NaN at exactly the windows inside the
+    silence and the CPU curve elsewhere; a prep launch leaves PyTorch's
+    current device as it was."""
+    import torch
+
+    from strugatzki_tpu_torch import SegmentationConfig
+    from strugatzki_tpu_torch.analysis.segmentation import _novelty_prep
+    from strugatzki_tpu_torch.io import audiofile as af
+    from strugatzki_tpu_torch.kernels import corr as K
+    from strugatzki_tpu_torch.kernels import prep
+
+    feats, _ = af.read(os.path.join(db, "silent_feat.aif"))
+    cfg = SegmentationConfig(meta_input="silent", normalize=False,
+                             corr_len=CORR_LEN).build()
+    xs, nw, _, h = _novelty_prep(feats, None, STEP, cfg)
+    curves = [K.novelty_trace(torch.as_tensor(xs, device=d), h,
+                              TEMP_WEIGHT)[:nw].cpu().numpy()
+              for d in ("cuda", "cpu")]
+    loud = feats[0, :nw - 1 + 2 * h]
+    silent = loud == loud[int((SILENT_AT + SILENT_LEN / 2) * SR) // STEP]
+    run = int(silent.sum())
+    require(run >= int(SILENT_LEN * SR) // STEP - 2,
+            f"only {run} silent frames")
+    inside = np.array([silent[t:t + 2 * h].all() for t in range(nw)])
+    for dev, c in zip(("cuda", "cpu"), curves):
+        require(np.array_equal(np.isnan(c), inside),
+                f"{dev}: NaN at {int(np.isnan(c).sum())} windows, "
+                f"{int(inside.sum())} inside the silence")
+    err = float(np.abs(curves[0][~inside] - curves[1][~inside]).max())
+    require(err <= NOVELTY_TOL, f"silence curve CUDA vs CPU {err:.3e}")
+
+    currents = []
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.set_device((d + 1) % torch.cuda.device_count())
+        current = torch.cuda.current_device()
+        x = torch.rand((3, 14, 500), device=f"cuda:{d}")
+        for variant in ("one_pass", "two_pass"):
+            prep.prepare_database_cuda(
+                x, torch.tensor([[0.0, 1.0]] * 14, device=f"cuda:{d}"),
+                torch.full((3,), 400, dtype=torch.int32, device=f"cuda:{d}"),
+                variant=variant)
+            torch.cuda.synchronize(d)
+            require(torch.cuda.current_device() == current,
+                    f"a {variant} launch on cuda:{d} left cuda:"
+                    f"{torch.cuda.current_device()} current, not {current}")
+        currents.append(current)
+    torch.cuda.set_device(0)
+    # with one card the launch device is the current one, so the guard in
+    # prep.cu has nothing to put back and this check cannot fail
+    restore = ("each launched on a card that was not current"
+               if torch.cuda.device_count() > 1 else
+               "on the only card, which was current: the restore is not "
+               "exercised")
+    print(f"mesh: repairs: {SILENT_LEN} s of silence at corrLen {CORR_LEN} "
+          f"(half window {h}): NaN at exactly the {int(inside.sum())} "
+          f"windows inside it on CUDA and the CPU, elsewhere CUDA vs CPU "
+          f"max |err| {err:.3e} ({NOVELTY_TOL}); one- and two-pass prep "
+          f"launches on each of {torch.cuda.device_count()} card(s) left "
+          f"the current device as it was ({currents}; {restore})")
+
+
+def mesh_phase(seed: int, card: str) -> Counter:
+    """The files mesh on the one card: the sharded serving deployment, the
+    sharded -c, the sequence-sharded long-file paths, -x under a mesh, and
+    the repairs."""
+    from strugatzki_tpu_torch.cli import main as cli
+    from strugatzki_tpu_torch.io import AIFF, AudioFileSpec, SampleFormat
+    from strugatzki_tpu_torch.io import audiofile as af
+
+    mesh = _mesh()
+    launches = mesh_scale(seed, card, mesh)
+    launches += mesh_correlation(seed, card, mesh)
+    mesh_long_file(seed, card, mesh)
+    with tempfile.TemporaryDirectory(prefix="strugatzki_mesh_") as tmp:
+        snd, db = os.path.join(tmp, "snd"), os.path.join(tmp, "db")
+        os.makedirs(snd)
+        os.makedirs(db)
+        write_analysis_sounds(snd, seed)
+        for name in ("seg.aif", "excerpt.aif"):
+            os.remove(os.path.join(snd, name))
+        silent = _sound(np.random.default_rng(seed + 5), SILENT_SECONDS)
+        a = _aligned(SILENT_AT)
+        silent[a:a + int(SILENT_LEN * SR)] = 0.0
+        af.write(os.path.join(snd, "silent.aif"), silent[None],
+                 AudioFileSpec(AIFF, SampleFormat.INT16, 1, float(SR)))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            require(cli(["-f", "-d", db, "--device", "cuda", snd]) == 0,
+                    f"-f:\n{out.getvalue()}")
+            require(cli(["--stats", "-d", db]) == 0,
+                    f"--stats:\n{out.getvalue()}")
+        mesh_selfsim(seed, card, mesh, db, tmp)
+        mesh_repairs(seed, card, db)
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1819,6 +2181,7 @@ def main(argv=None) -> int:
     launches += timed("database", database_phase)
     launches += timed("modes", modes_phase)
     timed("analyses", analyses_phase)
+    launches += timed("mesh", mesh_phase)
     print(f"phases: wall {', '.join(walls)}")
 
     print(json.dumps({"kernels": [{

@@ -29,7 +29,7 @@ from ..runtime.processor import Processor, ProcessorFactory
 from ..span import Span, spacing
 from ..kernels import corr as K
 from ..kernels.prep import prepare_database
-from ..parallel.sweep import _batched_traces, pad_stack
+from ..parallel.sweep import _template_traces, fetch, pad_stack
 from ..runtime.device import resolve
 
 __all__ = ["FeatureCorrelation", "InputTemplate", "sliding_traces",
@@ -188,15 +188,22 @@ def correlate_database(meta_in: ExtractionConfig, db_entries, norm,
                        check_aborted=lambda: None,
                        progress=lambda f: None,
                        verbose: bool = False,
-                       skip_nan: bool = False,
+                       skip_nan: bool = False, mesh=None,
                        device="cuda") -> List[Match]:
     """Run the full search on ``device``.  ``db_entries`` is a list of
     ``(ExtractionConfig, features_loader)`` pairs.
 
+    With ``mesh`` (a :class:`~..parallel.sweep.FilesMesh`, which then
+    decides the devices) the chunk size rounds up to a multiple of the
+    shard count, and each shard's rows of a chunk are prepared (the prep
+    kernel runs once per shard) and traced on that shard's device; the host
+    replay is unchanged, so the selection is the unsharded one's while the
+    sims carry the plan budget.
+
     ``skip_nan`` (off by default, as in the reference) keeps NaN
     similarity candidates out instead of letting them rank first and
     poison the ``inSim > low²`` gate (see the JAX package)."""
-    dev = resolve(device)
+    dev = resolve(device) if mesh is None else None
     cfg = config
     step = meta_in.step_size
 
@@ -228,14 +235,28 @@ def correlate_database(meta_in: ExtractionConfig, db_entries, norm,
     # through one prep kernel + one batched FFT-trace pass each, ahead of
     # the sequential host replay.
     chunk_size = CHUNK_SIZE
+    if mesh is not None:
+        chunk_size = -(-chunk_size // mesh.size) * mesh.size
+    # (device, rows of a chunk) of each shard
+    shards = [(dev, slice(0, chunk_size))] if mesh is None \
+        else list(zip(mesh.devices, mesh.split(chunk_size)))
 
-    def _trace_batch(xs_dev, shifts_dev, template: InputTemplate,
-                     temp_weight: float):
-        return _batched_traces(
-            xs_dev, template.device_temporal(dev),
-            template.device_spectral(dev), template.temporal_std,
-            template.spectral_std, template.ln_avg_loudness, shifts_dev,
-            temp_weight, cfg.max_boost)
+    def _traces(raw, lens_arr):
+        """Each shard's rows prepared and traced on its device: the
+        punch-in and (or None) the punch-out ``(sims, boosts)``, each a
+        list of per-shard tensors (one without a mesh)."""
+        ins, outs = [], []
+        for d, s in shards:
+            xs_dev, shifts_dev = prepare_database(raw[s], norm, lens_arr[s],
+                                                  device=d)
+            ins.append(_template_traces(xs_dev, shifts_dev, matrix_in,
+                                        in_temp_weight, cfg.max_boost))
+            if matrix_out is not None:
+                outs.append(_template_traces(
+                    xs_dev, shifts_dev, matrix_out,
+                    cfg.punch_out.temporal_weight, cfg.max_boost))
+        return (tuple(zip(*ins)),
+                tuple(zip(*outs)) if matrix_out is not None else None)
 
     def dispatch_chunk(chunk_entries):
         """Host prep + device launch of one chunk's traces; the fetch
@@ -261,22 +282,17 @@ def correlate_database(meta_in: ExtractionConfig, db_entries, norm,
             import sys as _sys
             print(f"  chunk: {len(chunk_entries)} files dispatched "
                   f"(device width {t_pad})", file=_sys.stderr)
-        xs_dev, shifts_dev = prepare_database(raw, norm, lens_arr, device=dev)
-        in_b = _trace_batch(xs_dev, shifts_dev, matrix_in, in_temp_weight)
-        out_b = None
-        if matrix_out is not None:
-            out_b = _trace_batch(xs_dev, shifts_dev, matrix_out,
-                                 cfg.punch_out.temporal_weight)
+        in_b, out_b = _traces(raw, lens_arr)
         return (chunk_entries, feats_list, lens, in_b, out_b)
 
     def collect_chunk(pending_chunk):
         chunk_entries, feats_list, lens, in_b, out_b = pending_chunk
         # fetch once per chunk; slice per-file valid prefixes
-        sims_in_b = in_b[0].cpu().numpy()
-        boosts_in_b = in_b[1].cpu().numpy()
+        sims_in_b = fetch(in_b[0])
+        boosts_in_b = fetch(in_b[1])
         if out_b is not None:
-            sims_out_b = out_b[0].cpu().numpy()
-            boosts_out_b = out_b[1].cpu().numpy()
+            sims_out_b = fetch(out_b[0])
+            boosts_out_b = fetch(out_b[1])
         items = []
         scan_delta = min_punch if matrix_out is not None else 0
         for i, (entry, t_i) in enumerate(zip(chunk_entries, lens)):
@@ -475,11 +491,15 @@ class FeatureCorrelation(ProcessorFactory):
     skip_nan = False
     #: the device the search runs on (process state, not config)
     device = "cuda"
+    #: a :class:`~..parallel.sweep.FilesMesh` to shard each chunk's prep
+    #: and traces over (process state, not config); it decides the devices
+    mesh = None
 
     @classmethod
     def _make_body(cls, config: CorrelationConfig):
         cfg = config.build()
         device = cls.device
+        mesh = cls.mesh
 
         def body(proc: Processor):
             meta_in = ExtractionConfig.from_xml_file(cfg.meta_input)
@@ -512,6 +532,6 @@ class FeatureCorrelation(ProcessorFactory):
                 check_aborted=proc.check_aborted,
                 progress=proc.set_progress,
                 verbose=cls.verbose,
-                skip_nan=cls.skip_nan, device=device)
+                skip_nan=cls.skip_nan, mesh=mesh, device=device)
 
         return body

@@ -21,6 +21,7 @@ from ..io import audiofile as af
 from ..runtime.processor import Processor, ProcessorFactory
 from ..span import Span
 from ..kernels import corr as K
+from ..parallel.sweep import sharded_long_file_trace
 from .correlation import InputTemplate, sliding_traces
 
 __all__ = ["CrossSimilarity"]
@@ -45,17 +46,28 @@ def _open_span(extr: ExtractionConfig, span: Span, num_frames: int):
 
 class CrossSimilarity(ProcessorFactory):
     """``CrossSimilarity.run(config, observer) -> Processor[None]``
-    (writes the similarity audio file)."""
+    (writes the similarity audio file).
+
+    The classvar ``mesh`` (a :class:`~..parallel.sweep.FilesMesh`) runs the
+    sliding trace sequence-parallel: the longer input's time axis splits
+    into per-shard slabs with an ``L − 1``-frame halo
+    (:func:`~..parallel.sweep.sharded_long_file_trace`), the natural axis of
+    one long trace.  Sims hold the single-device trace's within the plan
+    budget (3e-5: each shard's FFT length differs)."""
 
     name = "cross similarity"
     Config = CrossSimilarityConfig
     #: the device the sliding trace runs on (process state, not config)
     device = "cuda"
+    #: the mesh of the sequence-parallel trace (process state, not config);
+    #: it decides the devices
+    mesh = None
 
     @classmethod
     def _make_body(cls, config: CrossSimilarityConfig):
         cfg = config.build()
         device = cls.device
+        mesh = cls.mesh
 
         def body(proc: Processor):
             extr1 = ExtractionConfig.from_xml_file(cfg.meta_input1)
@@ -84,7 +96,8 @@ class CrossSimilarity(ProcessorFactory):
                 tmpl_src, sig_src = a1, a2
             else:
                 tmpl_src, sig_src = a2, a1
-            if tmpl_src.shape[1] == 0 or sig_src.shape[1] == 0:
+            len1 = tmpl_src.shape[1]
+            if len1 == 0 or sig_src.shape[1] == 0:
                 raise ValueError("empty span")
 
             template = InputTemplate(normalized(tmpl_src, norm))
@@ -95,9 +108,18 @@ class CrossSimilarity(ProcessorFactory):
             # (CrossSimilarityImpl.scala:169); the device computes the whole
             # trace in one pass, so stage the fractions around it
             proc.set_progress(0.1)
-            sims, _boosts = sliding_traces(
-                xs, shift_t, shift_s, template, sig_src.shape[1],
-                cfg.temporal_weight, cfg.max_boost, device=device)
+            # sequence-parallel only where there is a multi-window trace to
+            # split (the single zero-padded window of a signal shorter than
+            # the template keeps the single-device semantics)
+            if mesh is not None and sig_src.shape[1] >= len1:
+                sims, _boosts = sharded_long_file_trace(
+                    xs, shift_t, template, cfg.temporal_weight,
+                    cfg.max_boost, mesh)
+            else:
+                sims, _boosts = sliding_traces(
+                    xs, shift_t, shift_s, template, sig_src.shape[1],
+                    cfg.temporal_weight, cfg.max_boost,
+                    device=device if mesh is None else mesh.devices[0])
             proc.check_aborted()
             proc.set_progress(0.9)
 

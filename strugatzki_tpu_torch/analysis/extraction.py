@@ -16,6 +16,7 @@ import numpy as np
 
 from ..config import ChannelsBehavior, ExtractionConfig
 from ..io import audiofile as af
+from ..parallel.sweep import env_mesh, fetch
 from ..runtime.processor import Processor, ProcessorFactory
 from ..dsp.frontend import (extract_features, extract_features_batch,
                             extract_features_streaming, finalize_features,
@@ -129,9 +130,14 @@ def extract_batch_cli(in_files, target_dir: str, chan_mode: int,
     chain (Strugatzki.scala:495-511, :610-631): ``Starting extraction…`` /
     25-# bar + ``  Success.`` / ``success = … - tail? …``.  The chain aborts
     on the first failure.
+
+    ``STRUGATZKI_MESH=1`` on a host with several CUDA devices shards each
+    group's batch over all of them (:func:`~..parallel.sweep.env_mesh`; data
+    parallel over files), whatever ``device`` says.
     """
     in_files = list(in_files)
     group: list = []           # (index, head, cfg, mono, sr)
+    mesh = env_mesh()
 
     def report(idx: int, success: bool) -> None:
         # the reference's whenDone debug line (Strugatzki.scala:507)
@@ -156,8 +162,8 @@ def extract_batch_cli(in_files, target_dir: str, chan_mode: int,
                 audios, sr, num_coeffs=head_cfg.num_coeffs,
                 fft_size=head_cfg.fft_size,
                 fft_overlap=head_cfg.fft_overlap, as_device=True,
-                device=device)
-            feats_host = feats_dev.cpu().numpy()  # ONE fetch per group
+                device=device, mesh=mesh)
+            feats_host = fetch(feats_dev)  # ONE fetch per group
         except Exception as e:  # noqa: BLE001 - first file carries the failure
             print("  Failed: ")
             traceback.print_exception(type(e), e, e.__traceback__)

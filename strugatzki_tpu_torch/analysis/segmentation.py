@@ -23,7 +23,8 @@ from ..analysis.topk import SimSortedSet
 from ..config import Break, SegmentationConfig
 from ..runtime.processor import Processor, ProcessorFactory
 from ..kernels import corr as K
-from ..parallel.sweep import batched_novelty_traces, reject_mesh
+from ..parallel.sweep import (batched_novelty_traces,
+                              sharded_long_novelty_trace)
 from ..runtime.device import resolve
 from .correlation import _bucket
 
@@ -113,8 +114,8 @@ def segment_features_batch(feature_mats, norm, step_size: int,
     Curves are padded to one common bucketed width; the break-selection
     replay then runs per file on the host, identical to
     :func:`segment_features` up to the batch's shared FFT plan (break
-    positions match; sims within the 2e-5 plan budget)."""
-    reject_mesh(mesh)
+    positions match; sims within the 2e-5 plan budget).  ``mesh`` shards
+    the batch over its devices (which it then decides)."""
     mats = [np.asarray(f, np.float32) for f in feature_mats]
     if mats and any(m.shape[0] != mats[0].shape[0] for m in mats):
         raise ValueError(
@@ -133,7 +134,7 @@ def segment_features_batch(feature_mats, norm, step_size: int,
         xs_b[j, :, :xs.shape[1]] = xs
     check_aborted()
     sims_b = batched_novelty_traces(xs_b, half_win, config.temporal_weight,
-                                    device=device)
+                                    mesh=mesh, device=device)
     for j, (i, (_xs, num_windows, af_start, _h)) in enumerate(live):
         check_aborted()
         results[i] = _select_breaks(
@@ -148,17 +149,29 @@ def segment_features(features: np.ndarray, norm, step_size: int,
                      check_aborted=lambda: None,
                      progress=lambda f: None, device="cuda") -> List[Break]:
     """Core segmentation on an in-memory feature matrix ``[C, T]``, with
-    the novelty curve computed on ``device``."""
-    reject_mesh(mesh)
-    dev = resolve(device)
+    the novelty curve computed on ``device``.
+
+    With ``mesh`` (and enough windows to give every shard at least one) the
+    curve is computed time-sharded over the mesh's devices
+    (:func:`~..parallel.sweep.sharded_long_novelty_trace`): its sims carry
+    the plan budget against the single-device curve, so break positions
+    match while near-tie sims could reorder at ~1e-7."""
     prep = _novelty_prep(features, norm, step_size, config)
     if prep is None:
         return []
     xs, num_windows, af_start, half_win = prep
     check_aborted()
-    sims = K.novelty_trace(torch.as_tensor(xs, device=dev), half_win,
-                           config.temporal_weight)
-    sims = sims[:num_windows].cpu().numpy()
+    if mesh is not None and num_windows >= mesh.size:
+        # the whole-file bucket's tail goes: the sharded path re-buckets at
+        # the (much smaller) per-shard slab width
+        sims = sharded_long_novelty_trace(
+            xs[:, :num_windows - 1 + 2 * half_win], half_win,
+            config.temporal_weight, mesh)
+    else:
+        dev = resolve(device if mesh is None else mesh.devices[0])
+        sims = K.novelty_trace(torch.as_tensor(xs, device=dev), half_win,
+                               config.temporal_weight)
+        sims = sims[:num_windows].cpu().numpy()
     check_aborted()
     return _select_breaks(sims, af_start, half_win, step_size, config,
                           check_aborted=check_aborted, progress=progress)
@@ -171,18 +184,22 @@ class FeatureSegmentation(ProcessorFactory):
     Config = SegmentationConfig
     #: the device the novelty curve runs on (process state, not config)
     device = "cuda"
+    #: a :class:`~..parallel.sweep.FilesMesh` to time-shard the novelty
+    #: curve over (process state, not config); it decides the devices
+    mesh = None
 
     @classmethod
     def _make_body(cls, config: SegmentationConfig):
         cfg = config.build()
         device = cls.device
+        mesh = cls.mesh
 
         def body(proc: Processor):
             src = FeatureSource(cfg.meta_input)
             norm = load_norm(cfg.database_folder, src.meta.num_coeffs) \
                 if cfg.normalize else None
             return segment_features(
-                src.features, norm, src.step_size, cfg,
+                src.features, norm, src.step_size, cfg, mesh=mesh,
                 check_aborted=proc.check_aborted,
                 progress=proc.set_progress, device=device)
 

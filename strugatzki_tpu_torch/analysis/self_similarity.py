@@ -41,6 +41,7 @@ from ..util import palette as P
 from ..util.palette import apply_palette
 from ..util.png import write_png, write_png_rows
 from ..kernels import corr as K
+from ..parallel.sweep import fetch
 from ..runtime.device import resolve
 
 __all__ = ["SelfSimilarity", "self_similarity_matrix",
@@ -140,7 +141,8 @@ def _upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 def _prep_resident(x1: np.ndarray, x2: np.ndarray, half_win: int,
-                   decim: int, num_temporal: int = 1, device="cuda"):
+                   decim: int, num_temporal: int = 1, device="cuda",
+                   mesh=None):
     """Image extent, block count, and per-input ``(win_all [NB·_BLOCK, C,
     h], stats_all [4, NB·_BLOCK], num_temporal)`` resident stacks on
     ``device`` (``num_temporal`` rides with the stacks so a pair call can
@@ -148,11 +150,17 @@ def _prep_resident(x1: np.ndarray, x2: np.ndarray, half_win: int,
 
     The window starts are padded to whole blocks by repeating the last
     start (valid data, never indexed by a real cell).  In self mode
-    (``x2 is x1``) both inputs share one pair of stacks."""
+    (``x2 is x1``) both inputs share one pair of stacks.
+
+    With ``mesh`` the stacks are built on its first device and replicated
+    on each distinct device of the mesh, so every shard gathers its pair
+    blocks locally (no transfer between devices in a pair call); each input
+    is then a list of stacks, one per shard (shards on one device share
+    them)."""
     n = _extent(x1, x2, half_win, decim)
     if n == 0:
         return 0, 0, None, None
-    dev = resolve(device)
+    dev = resolve(device if mesh is None else mesh.devices[0])
     num_blocks = (n + _BLOCK - 1) // _BLOCK
     starts = torch.as_tensor(
         np.minimum(np.arange(num_blocks * _BLOCK, dtype=np.int64),
@@ -168,6 +176,17 @@ def _prep_resident(x1: np.ndarray, x2: np.ndarray, half_win: int,
 
     res1 = stacks_of(x1)
     res2 = res1 if x2 is x1 else stacks_of(x2)
+    if mesh is not None:
+        copies: dict = {}
+
+        def on(d, res):
+            key = (d, id(res))
+            if key not in copies:
+                win_all, stats_all, nt = res
+                copies[key] = (win_all.to(d), stats_all.to(d), nt)
+            return copies[key]
+
+        res1, res2 = ([on(d, r) for d in mesh.devices] for r in (res1, res2))
     return n, num_blocks, res1, res2
 
 
@@ -192,9 +211,19 @@ def _gram_pairs_core(win1, stats1, win2, stats2, idx: torch.Tensor,
                                    num_temporal=num_temporal)
 
 
-def _dispatch_pairs_fast(res1, res2, pairs, tw: float, pix=None):
+def _dispatch_pairs_fast(res1, res2, pairs, tw: float, pix=None, mesh=None):
     """One gram call (+ the colorize stages) for a chunk of (bi, bj) pairs,
-    queued on the device: returns the device tensor."""
+    queued on the device: returns the device tensor.
+
+    With ``mesh`` (and the per-shard stacks of :func:`_prep_resident`) the
+    chunk splits into one contiguous slice of pairs per shard, each
+    grammed on its shard's device: returns the list of per-shard tensors,
+    in pair order (:func:`~..parallel.sweep.fetch` reassembles them)."""
+    if mesh is not None:
+        per = -(-len(pairs) // mesh.size)
+        return [_dispatch_pairs_fast(res1[d], res2[d],
+                                     pairs[d * per:(d + 1) * per], tw, pix)
+                for d in range(mesh.size) if pairs[d * per:(d + 1) * per]]
     win1, stats1, nt = res1
     win2, stats2, _ = res2
     idx = _upload(np.asarray(pairs, np.int64).T.copy(), win1.device)
@@ -219,34 +248,36 @@ def _iter_pair_sims(pairs, dispatch_chunk, chunk_size,
             pending.append((chunks[ci], dispatch_chunk(chunks[ci])))
             ci += 1
         c, dev = pending.popleft()
-        sims = dev.cpu().numpy()
+        sims = fetch(dev)
         for p, s in zip(c, sims):
             yield p, s
 
 
 def _make_engine(x1, x2, half_win: int, decim: int, tw: float, pix,
-                 device="cuda"):
+                 device="cuda", mesh=None):
     """Prep the gram engine: ``(n, num_blocks, dispatch, chunk)`` where
-    ``dispatch(pairs)`` queues one chunk of (bi, bj) block pairs."""
+    ``dispatch(pairs)`` queues one chunk of (bi, bj) block pairs:
+    ``_PAIRS_PER_CALL`` pairs, or that many per shard of ``mesh``."""
     n, num_blocks, res1, res2 = _prep_resident(x1, x2, half_win, decim,
-                                               device=device)
+                                               device=device, mesh=mesh)
     return (n, num_blocks,
-            lambda ps: _dispatch_pairs_fast(res1, res2, ps, tw, pix),
-            _PAIRS_PER_CALL)
+            lambda ps: _dispatch_pairs_fast(res1, res2, ps, tw, pix,
+                                            mesh=mesh),
+            _PAIRS_PER_CALL * (1 if mesh is None else mesh.size))
 
 
 def _pixel_matrix(x1: np.ndarray, x2: np.ndarray, half_win: int,
                   decim: int, temp_weight: float,
                   check_aborted=lambda: None,
                   progress=lambda f: None, pix=None,
-                  device="cuda") -> np.ndarray:
+                  device="cuda", mesh=None) -> np.ndarray:
     """Shared matrix builder: float32 sims (``pix=None``) or the
     device-colorized uint8/uint16 raster over the same block schedule
     (int32 palette indices narrow to uint16 as they are stored)."""
     dtype = np.float32 if pix is None else (
         np.uint8 if pix[2] else np.uint16)
     n, num_blocks, dispatch, chunk = _make_engine(
-        x1, x2, half_win, decim, temp_weight, pix, device)
+        x1, x2, half_win, decim, temp_weight, pix, device, mesh)
     if n == 0:
         return np.zeros((0, 0), dtype)
 
@@ -278,12 +309,13 @@ def self_similarity_matrix(x1: np.ndarray, x2: np.ndarray, half_win: int,
                            decim: int, temp_weight: float,
                            check_aborted=lambda: None,
                            progress=lambda f: None,
-                           device="cuda") -> np.ndarray:
+                           device="cuda", mesh=None) -> np.ndarray:
     """Similarity matrix ``[n, n]`` over decimated window starts of two
-    prepared (normalized, jointly shifted) feature matrices."""
+    prepared (normalized, jointly shifted) feature matrices; with ``mesh``
+    each chunk of block pairs shards over its devices."""
     return _pixel_matrix(x1, x2, half_win, decim, temp_weight,
                          check_aborted=check_aborted, progress=progress,
-                         device=device)
+                         device=device, mesh=mesh)
 
 
 def self_similarity_image(x1: np.ndarray, x2: np.ndarray, half_win: int,
@@ -293,7 +325,7 @@ def self_similarity_image(x1: np.ndarray, x2: np.ndarray, half_win: int,
                           color_inv: bool = False,
                           check_aborted=lambda: None,
                           progress=lambda f: None,
-                          device="cuda") -> np.ndarray:
+                          device="cuda", mesh=None) -> np.ndarray:
     """RGB image (reference pixel layout) for the similarity matrix: the
     device colorization when ``colorWarp == 1``, else the float32 matrix
     colorized on the host exactly like :func:`render_image`."""
@@ -301,11 +333,11 @@ def self_similarity_image(x1: np.ndarray, x2: np.ndarray, half_win: int,
     if pix is None:
         sims = _pixel_matrix(x1, x2, half_win, decim, temp_weight,
                              check_aborted=check_aborted, progress=progress,
-                             device=device)
+                             device=device, mesh=mesh)
         return render_image(sims, colors, color_warp, color_ceil, color_inv)
     vals = _pixel_matrix(x1, x2, half_win, decim, temp_weight,
                          check_aborted=check_aborted, progress=progress,
-                         pix=pix, device=device)
+                         pix=pix, device=device, mesh=mesh)
     rgb = _pix_to_rgb(vals, pix[2])
     # same layout rule as render_image: x = i, y = flipped j
     return rgb.transpose(1, 0, 2)[::-1]
@@ -358,7 +390,8 @@ def self_similarity_to_png(x1: np.ndarray, x2: np.ndarray, half_win: int,
                            color_inv: bool = False,
                            check_aborted=lambda: None,
                            progress=lambda f: None,
-                           png_level: int = 6, device="cuda") -> int:
+                           png_level: int = 6, device="cuda",
+                           mesh=None) -> int:
     """Stream the similarity image straight to a PNG without ever holding
     the ``[n, n]`` matrix or its RGB raster: one ``[n, _BLOCK]`` column
     stripe at a time is computed on ``device``, colorized, and fed to the
@@ -382,7 +415,7 @@ def self_similarity_to_png(x1: np.ndarray, x2: np.ndarray, half_win: int,
     dtype = np.float32 if pix is None else (
         np.uint8 if pix[2] else np.uint16)
     n, num_blocks, dispatch, gsize = _make_engine(
-        x1, x2, half_win, decim, temp_weight, pix, device)
+        x1, x2, half_win, decim, temp_weight, pix, device, mesh)
     if n == 0:
         write_png(path, np.zeros((0, 0, 3), np.uint8))
         return 0
@@ -410,7 +443,7 @@ def self_similarity_to_png(x1: np.ndarray, x2: np.ndarray, half_win: int,
         stripe = np.empty((n, c1 - c0), dtype)
         for group, dev in dispatched:
             t0 = time.perf_counter() if timing else 0.0
-            sims_g = dev.cpu().numpy()
+            sims_g = fetch(dev)
             if timing:
                 timing["fetch"] += time.perf_counter() - t0
             for bi, sims in zip(group, sims_g):
@@ -486,6 +519,9 @@ class SelfSimilarity(ProcessorFactory):
     Config = SelfSimilarityConfig
     #: the device the gram runs on (process state, not config)
     device = "cuda"
+    #: a :class:`~..parallel.sweep.FilesMesh` to shard each chunk of block
+    #: pairs over (process state, not config); it decides the devices
+    mesh = None
     #: deflate level for the streaming (giant-extent) path: None = auto
     #: (6, dropping to 1 above ``_FAST_DEFLATE_EXTENT``); set an int to
     #: force a level.  Process state, not config: the XML schema stays
@@ -496,6 +532,7 @@ class SelfSimilarity(ProcessorFactory):
     def _make_body(cls, config: SelfSimilarityConfig):
         cfg = config.build()
         device = cls.device
+        mesh = cls.mesh
         png_level = cls.png_level
 
         def body(proc: Processor):
@@ -565,14 +602,15 @@ class SelfSimilarity(ProcessorFactory):
                         cfg.color_ceil, cfg.color_inv,
                         check_aborted=proc.check_aborted,
                         progress=proc.set_progress, png_level=level,
-                        device=device)
+                        device=device, mesh=mesh)
             else:
                 with proc.sub(0.95):
                     rgb = self_similarity_image(
                         x1, x2, half_win, decim, cfg.temporal_weight,
                         cfg.colors, cfg.color_warp, cfg.color_ceil,
                         cfg.color_inv, check_aborted=proc.check_aborted,
-                        progress=proc.set_progress, device=device)
+                        progress=proc.set_progress, device=device,
+                        mesh=mesh)
                 write_png(cfg.image_output, rgb)
             proc.set_progress(1.0)
             return None

@@ -13,8 +13,11 @@ and boosts as dB:
     python -m strugatzki_tpu_torch.cli -y [--device D] ... in1_feat.xml in2_feat.xml out.aif
 
 ``--device`` is ``cuda`` (the default) or ``cpu``; CUDA is never replaced by
-the CPU unless asked.  The port has no multi-device paths yet, so it does
-not read ``STRUGATZKI_MESH``.
+the CPU unless asked.  ``STRUGATZKI_MESH=1`` on a host with more than one
+CUDA device shards ``-f``, ``-c``, ``-s``, ``-x`` and ``-y`` over all of them
+(``parallel/sweep.py::env_mesh``), whatever ``--device`` says; each
+invocation sets the factories' ``mesh`` anew, so ``None`` clears a previous
+run's.
 """
 
 from __future__ import annotations
@@ -229,8 +232,10 @@ def feature_corr(args) -> int:
         raise SystemExit("Maximum duration is smaller than minimum duration")
 
     from .analysis.correlation import FeatureCorrelation
+    from .parallel.sweep import env_mesh
     FeatureCorrelation.verbose = ns.verbose
     FeatureCorrelation.device = ns.device
+    FeatureCorrelation.mesh = env_mesh()
     cfg = CorrelationConfig(
         database_folder=ns.dir, meta_input=ns.input,
         punch_in=Punch(in_span, ns.in_temp), punch_out=punch_out,
@@ -324,8 +329,10 @@ def feature_segm(args) -> int:
         return 1
 
     from .analysis.segmentation import FeatureSegmentation
+    from .parallel.sweep import env_mesh
     FeatureSegmentation.verbose = ns.verbose
     FeatureSegmentation.device = ns.device
+    FeatureSegmentation.mesh = env_mesh()
     cfg = SegmentationConfig(
         database_folder=ns.dir or "database", meta_input=ns.input, span=span,
         corr_len=corr_frames, temporal_weight=ns.temp, normalize=normalize,
@@ -386,8 +393,10 @@ def feature_self(args) -> int:
         return 1
 
     from .analysis.self_similarity import SelfSimilarity
+    from .parallel.sweep import env_mesh
     SelfSimilarity.verbose = ns.verbose
     SelfSimilarity.device = ns.device
+    SelfSimilarity.mesh = env_mesh()
     cfg = SelfSimilarityConfig(
         database_folder=ns.dir or "database", meta_input=ns.input,
         meta_input2=ns.input2, image_output=ns.output, span=span,
@@ -434,8 +443,10 @@ def feature_cross(args) -> int:
     sr2 = af.read_spec(meta2.audio_input).sample_rate
 
     from .analysis.cross_similarity import CrossSimilarity
+    from .parallel.sweep import env_mesh
     CrossSimilarity.verbose = ns.verbose
     CrossSimilarity.device = ns.device
+    CrossSimilarity.mesh = env_mesh()
     cfg = CrossSimilarityConfig(
         database_folder=ns.dir or "database",
         meta_input1=ns.input1, meta_input2=ns.input2,

@@ -401,6 +401,33 @@ prep_apply(const float* __restrict__ x, const float* __restrict__ norm,
 
 namespace {
 
+// Makes `device` current for the life of the guard, and puts back the device
+// that was current before when the guard goes out of scope, so an entry point
+// leaves the caller's current device as it found it on success and on error.
+// (PyTorch's own device guard does not see a switch made here: it would keep
+// the launch's device current after the call.)
+class DeviceGuard {
+ public:
+  explicit DeviceGuard(int device) {
+    err_ = cudaGetDevice(&prev_);
+    if (err_ != cudaSuccess) {
+      prev_ = -1;
+      return;
+    }
+    if (prev_ != device) err_ = cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (prev_ >= 0) cudaSetDevice(prev_);
+  }
+  DeviceGuard(const DeviceGuard&) = delete;
+  DeviceGuard& operator=(const DeviceGuard&) = delete;
+  cudaError_t error() const { return err_; }
+
+ private:
+  int prev_ = -1;
+  cudaError_t err_ = cudaSuccess;
+};
+
 // Sets the attributes the one-pass kernel needs for clusters of `nc` over
 // [C, T] files, and fills `cfg` and `attr` for a grid of `blocks` CTAs.
 cudaError_t one_pass_config(int C, int T, int nc, unsigned blocks,
@@ -452,7 +479,8 @@ extern "C" int prep_one_pass_launch(const float* x, const float* norm,
           0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
@@ -470,7 +498,8 @@ extern "C" int prep_one_pass_launch(const float* x, const float* norm,
 // error code, or 0.
 extern "C" int prep_one_pass_clusters(int C, int T, int nc, int device,
                                       int* clusters) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
@@ -489,7 +518,8 @@ extern "C" int prep_launch(const float* x, const float* norm, const int* lens,
                            float* out, float* shift_t, float* shift_s,
                            double* partial, int B, int C, int T, int nt,
                            int seg_len, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int S = (T + seg_len - 1) / seg_len;

@@ -310,21 +310,32 @@ def stage_resident_batch(audios, sample_rate: float, num_coeffs: int = 13,
                          smask: float = C.SPECTRAL_MASK_DEFAULT,
                          tmask: float = C.TEMPORAL_MASK_DEFAULT,
                          block_frames: int = BLOCK_FRAMES,
-                         device="cuda"):
+                         device="cuda", mesh=None):
     """Stage a batch for :func:`_extract_scan_batch`: padded rows uploaded
     from pinned host memory, zero carries, device constants, and the shape
-    plan — ``(x_dev, carry0, consts, block, num_blocks)``."""
-    dev = resolve(device)
+    plan — ``(x_dev, carry0, consts, block, num_blocks)``, where ``x_dev``,
+    ``carry0`` and ``consts`` are lists with one entry per shard of ``mesh``
+    (a :class:`~..parallel.sweep.FilesMesh`; one shard on ``device``
+    without it), its contiguous rows on its device.  The batch is padded
+    with 1-sample silent rows to a multiple of the shard count (callers
+    slice their real rows)."""
+    from ..parallel.sweep import mesh_or_device
+
+    mesh = mesh_or_device(mesh, device)
     step = fft_size // fft_overlap
     audios = [np.asarray(a) for a in audios]
+    pad_b = mesh.pad_rows(len(audios))
+    if pad_b:
+        pad_dtype = np.int16 if all(
+            a.dtype == np.int16 for a in audios) else np.float32
+        audios += [np.zeros(1, pad_dtype)] * pad_b
     total_max = max(num_output_frames(len(a), step) for a in audios)
-    consts = _device_consts(float(sample_rate), fft_size, num_coeffs,
-                            float(smask), float(tmask), dev)
     block, num_blocks = _plan_shapes(total_max, block_frames)
     left_pad = fft_size - step
     padded_len = num_blocks * block * step + fft_size - step
     dtype = np.int16 if all(a.dtype == np.int16 for a in audios) else np.float32
-    host, padded = _host_buffer((len(audios), padded_len), np.dtype(dtype), dev)
+    host, padded = _host_buffer((len(audios), padded_len), np.dtype(dtype),
+                                mesh.devices[0])
     padded[:, :left_pad] = 0
     for i, a in enumerate(audios):
         if dtype == np.float32 and a.dtype == np.int16:
@@ -332,9 +343,14 @@ def stage_resident_batch(audios, sample_rate: float, num_coeffs: int = 13,
         n = min(len(a), padded_len - left_pad)
         padded[i, left_pad:left_pad + n] = a[:n]
         padded[i, left_pad + n:] = 0
-    carry0 = torch.zeros((len(audios), T.ERB_BANDS), dtype=torch.float32,
-                         device=dev)
-    return host.to(dev, non_blocking=True), carry0, consts, block, num_blocks
+    staged = [(host[s].to(dev, non_blocking=True),
+               torch.zeros((s.stop - s.start, T.ERB_BANDS),
+                           dtype=torch.float32, device=dev),
+               _device_consts(float(sample_rate), fft_size, num_coeffs,
+                              float(smask), float(tmask), dev))
+              for dev, s in zip(mesh.devices, mesh.split(len(audios)))]
+    x_dev, carry0, consts = (list(col) for col in zip(*staged))
+    return x_dev, carry0, consts, block, num_blocks
 
 
 def extract_features_batch(audios, sample_rate: float, num_coeffs: int = 13,
@@ -342,37 +358,53 @@ def extract_features_batch(audios, sample_rate: float, num_coeffs: int = 13,
                            smask: float = C.SPECTRAL_MASK_DEFAULT,
                            tmask: float = C.TEMPORAL_MASK_DEFAULT,
                            block_frames: int = BLOCK_FRAMES,
-                           as_device: bool = False, device="cuda"):
+                           as_device: bool = False, device="cuda",
+                           mesh=None):
     """Batch extraction: list of equal-rate mono signals → ``[B, C, F_max]``
     features (each file's valid length is ``num_output_frames(len_i, step)``;
     the tail beyond it holds silence features), one batched pass.
 
-    With ``as_device=True`` returns ``([B, nb, C, block]`` device tensor,
-    per-file frame totals) — finish each file with
-    :func:`finalize_features`."""
+    With ``as_device=True`` returns (the list of per-shard ``[B/n, nb, C,
+    block]`` device tensors, per-file frame totals): gather it with
+    :func:`~..parallel.sweep.fetch` and finish each file with
+    :func:`finalize_features`.
+
+    With ``mesh`` the files axis shards over the mesh's devices (data
+    parallel; one shard on ``device`` without it): the batch is padded with
+    silent rows to a multiple of the shard count, each shard's rows run on
+    its device, and the host result is trimmed back to ``len(audios)``
+    rows.  The ``as_device`` handle keeps the padded rows, while ``totals``
+    keeps one entry per real file."""
+    from ..parallel.sweep import fetch, mesh_or_device
+
+    mesh = mesh_or_device(mesh, device)
     step = fft_size // fft_overlap
     audios = [np.asarray(a) for a in audios]
     totals = [num_output_frames(len(a), step) for a in audios]
     if max(totals, default=0) == 0:
         if as_device:
             # block-shaped like the device result so finalize_features works
-            return torch.zeros((len(audios), 1, num_coeffs + 1, 0),
-                               dtype=torch.float32,
-                               device=resolve(device)), totals
+            return [torch.zeros((len(audios), 1, num_coeffs + 1, 0),
+                                dtype=torch.float32,
+                                device=mesh.devices[0])], totals
         return np.zeros((len(audios), num_coeffs + 1, 0), np.float32)
     total_max = max(totals)
     x_dev, carry0, consts, block, num_blocks = stage_resident_batch(
         audios, sample_rate, num_coeffs=num_coeffs, fft_size=fft_size,
         fft_overlap=fft_overlap, smask=smask, tmask=tmask,
-        block_frames=block_frames, device=device)
-    feats, _ = _extract_scan_batch(
-        x_dev, carry0, *consts,
-        num_blocks=num_blocks, block=block, fft_size=fft_size, step=step)
+        block_frames=block_frames, mesh=mesh)
+
+    def run(x, c, k):
+        return _extract_scan_batch(x, c, *k, num_blocks=num_blocks,
+                                   block=block, fft_size=fft_size,
+                                   step=step)[0]
+
+    feats = [run(x, c, k) for x, c, k in zip(x_dev, carry0, consts)]
     if as_device:
         return feats, totals
-    out = feats.cpu().numpy()  # [B, nb, C, block]
+    out = fetch(feats)  # [B, nb, C, block]
     out = out.transpose(0, 2, 1, 3).reshape(out.shape[0], num_coeffs + 1, -1)
-    return out[:, :, :total_max].copy()
+    return out[:len(audios), :, :total_max].copy()
 
 
 def _bucket_blocks(n: int) -> int:

@@ -28,17 +28,19 @@ is zero is never evaluated (the JAX package computes it and selects 0 with
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 __all__ = ["prepare_template", "shift_per_group", "sliding_dot_fft",
            "correlation_trace", "trace_spectra",
            "correlation_trace_from_spectra", "forward_spectra",
            "pack_spectra", "unpack_spectra", "window_sum_table",
-           "correlation_trace_from_sums", "novelty_trace",
-           "extract_windows", "window_stats", "gram_similarity_block"]
+           "correlation_trace_from_sums", "novelty_trace", "novelty_sums",
+           "novelty_finish", "extract_windows", "window_stats", "gram_similarity_block"]
 
 
 # ---------------------------------------------------------------------------
@@ -356,7 +358,34 @@ def novelty_trace(xs: torch.Tensor, half_win: int, temp_weight: float,
     carry round-off in proportion to the whole row, not to the window.  In
     f32 that costs up to 3e-4 against the f64 mirror on a 5-minute
     recording of steady sections (PERF.md, Findings).
+
+    Even in float64, a window whose variance is tiny against the row's
+    energy — a group held (nearly) constant, as the rows are through a
+    digital silence — gets noise that differs between FFT libraries where
+    the mirror has a value: NaN (0/0) where the variance is exactly zero,
+    as for the loudness row through a silence longer than the window.  A
+    window whose group is one constant (found exactly, from its range) is
+    NaN, as in the mirror; the padding past a file's end is such a window.
+    Every other such window (``var·2h·c`` below :data:`_EXACT_BELOW` of the
+    row's energy) is recomputed from its cells with the mirror's two
+    passes.  The JAX package leaves the round-off (PERF.md, Findings).
+
+    The two steps are :func:`novelty_sums`, which only launches work, and
+    :func:`novelty_finish`, which finds the windows to recompute and so
+    synchronizes the device once per channel group; a sharded caller
+    launches every shard's sums before it finishes the first.
     """
+    return novelty_finish(novelty_sums(xs, half_win, temp_weight,
+                                       num_temporal=num_temporal))
+
+
+def novelty_sums(xs: torch.Tensor, half_win: int, temp_weight: float,
+                 num_temporal: int = 1):
+    """The FFT step of :func:`novelty_trace`, launched without a
+    synchronization: for each channel group that the blend uses, its f64
+    rows, its curve from the window sums (NaN where the window is one
+    constant) and a weight that is nonzero at the windows to recompute.
+    Hand the result to :func:`novelty_finish`."""
     h = half_win
     nt = num_temporal
     xs = xs.to(torch.float64)
@@ -374,18 +403,88 @@ def novelty_trace(xs: torch.Tensor, half_win: int, temp_weight: float,
         c = rows.shape[-2]
         # lag product y[i] = Σ_c x[c, i]·x[c, i+h]
         p = wsum((rows[..., :-h] * rows[..., h:]).sum(dim=-2), ones_h)
+        sq = (rows * rows).sum(dim=-2)
         s = wsum(rows.sum(dim=-2), ones_2h)
-        q = wsum((rows * rows).sum(dim=-2), ones_2h)
+        q = wsum(sq, ones_2h)
         n2 = 2 * h * c
         mu = s / n2
         # the reference's two-pass variance is non-negative by construction;
         # q/N − μ² can round negative
         var = torch.clamp_min(q / n2 - mu * mu, 0.0)
         n_half = h * c
-        return (p - n_half * mu * mu) / (var * n_half)
+        sim = (p - n_half * mu * mu) / (var * n_half)
+        # written with arithmetic only: comparison, logic and selection
+        # kernels would each load on their first call in a process
+        rng = _window_range(rows, 2 * h)
+        # rng/rng is 1, or NaN where the window is one constant; bad is
+        # positive where the window is ill-conditioned but not constant
+        bad = torch.clamp_min(_EXACT_BELOW * sq.sum(dim=-1, keepdim=True)
+                              - var * n2, 0.0) * rng
+        return rows, sim * (rng / rng), bad
 
-    return _blend(temp_weight, lambda: group(xs[..., :nt, :]),
-                  lambda: group(xs[..., nt:, :])).to(torch.float32)
+    # the groups _blend evaluates, and no other
+    w = _f32(temp_weight)
+    return (temp_weight, h,
+            group(xs[..., :nt, :]) if w > 0.0 else None,
+            group(xs[..., nt:, :]) if w < 1.0 else None)
+
+
+def novelty_finish(sums) -> torch.Tensor:
+    """:func:`novelty_trace` from the result of :func:`novelty_sums`: the
+    ill-conditioned windows recomputed, the groups blended → float32
+    ``sim [..., W]``."""
+    temp_weight, h, temporal, spectral = sums
+    return _blend(temp_weight, lambda: _exact_windows(*temporal, h),
+                  lambda: _exact_windows(*spectral, h)).to(torch.float32)
+
+
+#: a novelty window whose FFT variance sum ``var·2h·c`` is below this share
+#: of its row's energy is recomputed from its cells: the FFT sums' f64
+#: round-off (a few ulp of the row's energy, times log N) is then at most
+#: ~1e-6 of the window's variance, well inside the 2e-5 budget, and every
+#: other window keeps the FFT value
+_EXACT_BELOW = 1e-8
+#: windows recomputed at a time (a chunk of 13-row, 172-frame f64 windows
+#: is ~73 MB)
+_EXACT_CHUNK = 4096
+
+
+def _window_range(rows: torch.Tensor, win: int) -> torch.Tensor:
+    """``[..., W]``: max − min over every cell of the length-``win`` window
+    at each start, over all ``c`` rows of ``rows`` (``[..., c, Tp]``); zero
+    exactly where the window holds one value.  The mirror's mean of such a
+    window is that value exactly (its cells are f32 values, so their sum is
+    exact), so it gives 0/0 there."""
+    c, Tp = rows.shape[-2], rows.shape[-1]
+    cells = rows.reshape(-1, 1, c, Tp)
+    hi = F.max_pool2d(cells, (c, win), stride=1)
+    neg_lo = F.max_pool2d(cells * -1.0, (c, win), stride=1)
+    return (hi + neg_lo).reshape(*rows.shape[:-2], -1)
+
+
+def _exact_windows(rows: torch.Tensor, sim: torch.Tensor, bad: torch.Tensor,
+                   h: int) -> torch.Tensor:
+    """``sim`` with the windows where ``bad`` is nonzero recomputed from
+    ``rows`` (``[..., c, Tp]`` f64) with the mirror's two passes
+    (``mathref.correlate_half``): the mean, the variance of the deviations,
+    then the lag product of the deviations; 0/0 gives NaN."""
+    # the one synchronization; most curves have nothing to recompute
+    if float(bad.sum()) == 0.0:
+        return sim
+    idx = torch.nonzero(bad.reshape(-1, bad.shape[-1]))
+    c, Tp = rows.shape[-2], rows.shape[-1]
+    flat = rows.reshape(-1, c, Tp)
+    out = sim.reshape(-1, sim.shape[-1]).clone()
+    lag = torch.arange(2 * h, device=rows.device)
+    chan = torch.arange(c, device=rows.device)[None, :, None]
+    for o in range(0, idx.shape[0], _EXACT_CHUNK):
+        b, t = idx[o:o + _EXACT_CHUNK].unbind(dim=1)
+        w = flat[b[:, None, None], chan, (t[:, None] + lag)[:, None, :]]
+        d = w - w.mean(dim=(-2, -1), keepdim=True)
+        var = (d * d).mean(dim=(-2, -1))
+        num = (d[..., :h] * d[..., h:]).sum(dim=(-2, -1))
+        out[b, t] = num / (var * (h * c))
+    return out.reshape(sim.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -426,20 +525,30 @@ def gram_similarity_block(win_i: torch.Tensor, win_j: torch.Tensor,
     H100's tensor cores at the rate of FP32 without them):
     ``D − N·μ²`` and ``q/N − μ²`` cancel for a window pair whose variance
     is small against its squared mean, which in f32 costs up to 3e-4 on a
-    3-minute piece (PERF.md, Findings)."""
+    3-minute piece (PERF.md, Findings).
+
+    A pair whose group is one constant over both windows (two windows
+    inside a digital silence) has zero variance: NaN in the f64 mirror, as
+    in :func:`novelty_trace`.  Whether the sums give 0/0 there depends on
+    their rounding, so such pairs are found exactly, from each window's
+    range and value, and written as NaN."""
     nt = num_temporal
     h = win_i.shape[-1]
 
     def group(a, b, sa, qa, sb, qb):
         c = a.shape[-2]
         n_h = c * h
+        lo_a, lo_b = a.amin(dim=(-2, -1)), b.amin(dim=(-2, -1))
+        flat = ((lo_a == a.amax(dim=(-2, -1)))[..., :, None]
+                & (lo_b == b.amax(dim=(-2, -1)))[..., None, :]
+                & (lo_a[..., :, None] == lo_b[..., None, :]))
         a = a.to(torch.float64).reshape(*a.shape[:-2], n_h)
         b = b.to(torch.float64).reshape(*b.shape[:-2], n_h)
         d = torch.matmul(a, b.transpose(-1, -2))
         mu = (sa[..., :, None] + sb[..., None, :]) / (2 * n_h)
         var = torch.clamp_min(
             (qa[..., :, None] + qb[..., None, :]) / (2 * n_h) - mu * mu, 0.0)
-        return (d - n_h * mu * mu) / (var * n_h)
+        return torch.where(flat, math.nan, (d - n_h * mu * mu) / (var * n_h))
 
     s_ti, q_ti, s_si, q_si = stats_i
     s_tj, q_tj, s_sj, q_sj = stats_j

@@ -41,9 +41,9 @@ REDUCED_TOLERANCE = 4e-3
 def run_batch_canary(n_files: int = 256, file_frames: int = 1200,
                      num_queries: int = 8, l_in: int = 96, l_out: int = 48,
                      seed: int = 0, cache_spectra=False, storage_dtype=None,
-                     device="cuda") -> dict:
-    """Plant exact matches, run the four query families on ``device``,
-    report.
+                     device="cuda", mesh=None) -> dict:
+    """Plant exact matches, run the four query families on ``device`` (or
+    on a database sharded over ``mesh``), report.
 
     On a reduced-precision database (``cache_spectra="bf16"`` or
     ``storage_dtype=torch.bfloat16``) the families run twice: with the
@@ -90,7 +90,8 @@ def run_batch_canary(n_files: int = 256, file_frames: int = 1200,
         planted.append((f, o_in + q))
 
     db = FeatureDatabase(entries, norm=None, cache_spectra=cache_spectra,
-                         storage_dtype=storage_dtype, device=device)
+                         storage_dtype=storage_dtype, device=device,
+                         mesh=mesh)
     report = {"families": {}, "tols": {}, "frames_ok": True}
 
     def record(name: str, devs, frames_ok: bool, tol: float) -> None:

@@ -1,12 +1,22 @@
 """Device-resident feature database for correlation serving, in PyTorch.
 
-Port of ``strugatzki_tpu/parallel/database.py`` for one device (a CUDA card
-or the CPU).  The database is loaded once — normalized and group-shifted by
-the prep kernel (``kernels/prep.py``, hand-written CUDA on a card), padded,
-and kept resident as one ``[B, C, T]`` float32 tensor — and each query runs
-batched FFT correlation traces over the files axis (cuFFT), a masked
-tie-stable top-k per file, and, on request, an exact re-rank of the
-candidates.
+Port of ``strugatzki_tpu/parallel/database.py``, on one device (a CUDA card
+or the CPU) or sharded over a files mesh.  The database is loaded once —
+normalized and group-shifted by the prep kernel (``kernels/prep.py``,
+hand-written CUDA on a card), padded, and kept resident as ``[B, C, T]``
+float32 tensors — and each query runs batched FFT correlation traces over
+the files axis (cuFFT), a masked tie-stable top-k per file, and, on
+request, an exact re-rank of the candidates.
+
+Under a ``mesh`` (:class:`~.sweep.FilesMesh`) the files axis is padded to a
+multiple of the shard count and split into contiguous row blocks, one per
+shard, each staged (uploaded and prepared by the prep kernel), cached and
+queried on its shard's device: a query launches every shard's work before it
+fetches any, and the per-file results concatenate in shard order, so a
+result has the single-device database's rows.  The exact re-rank scores each
+candidate on the shard that owns its file and assembles the scores by
+ownership (a select-scatter: exact, NaN kept).  A mesh that spans processes
+is not supported (``NotImplementedError``).
 
 Capacity modes, as in the JAX package:
 
@@ -33,8 +43,6 @@ template (or, for :meth:`FeatureDatabase.query_punch`, shorter than
 ``min_punch`` + the punch-in template) have no valid window and are left out
 of the results; ``FeatureCorrelation`` replays the reference's zero-tailed
 single window for them.
-
-Not ported yet, and refused with ``NotImplementedError``: a ``mesh``.
 """
 
 from __future__ import annotations
@@ -104,14 +112,6 @@ def _host(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.int64:
         t = t.to(torch.int32)
     return t.cpu().numpy()
-
-
-def _reject_unported(mesh=None) -> None:
-    """Raise for the one mode of the JAX package the port does not have
-    yet; it is never accepted and ignored."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: a files-sharded database is not ported yet")
 
 
 def _real_dtype(spec, what: str) -> torch.dtype:
@@ -223,16 +223,22 @@ class _HostSlab:
     keeps a freed block pinned for the rest of the process: a staging slab
     of a 10,000-file database (~1.2 GB) would stay resident after staging —
     host memory the memmap raw store exists to save.  This buffer is
-    page-locked with ``cudaHostRegister`` instead, and each slab waits for
-    the device (the staging loop synchronizes per slab) before the next one
-    overwrites it.  On the CPU slabs pass through as they are."""
+    page-locked with ``cudaHostRegister`` instead, registered portable so
+    that it is pinned for every card a sharded staging feeds, and each slab
+    waits for its device (the staging loop synchronizes per slab) before
+    the next one overwrites it.  On the CPU slabs pass through as they
+    are."""
 
     _PAGE = 4096
+    #: ``cudaHostRegisterPortable``: pinned for every CUDA context, not
+    #: only the current device's
+    _PORTABLE = 1
 
-    def __init__(self, shape, device: torch.device) -> None:
-        self._device = device
+    def __init__(self, shape, devices: Sequence[torch.device]) -> None:
+        self._cards = sorted({d for d in devices if d.type == "cuda"},
+                             key=str)
         self._buf = None
-        if device.type != "cuda":
+        if not self._cards:
             return
         nbytes = int(np.prod(shape)) * 4
         # page-aligned: the whole buffer is locked, and no page is shared
@@ -241,27 +247,41 @@ class _HostSlab:
         off = -self._mem.ctypes.data % self._PAGE
         buf = self._mem[off:off + nbytes].view(np.float32).reshape(shape)
         rt = torch.cuda.cudart()
-        err = rt.cudaHostRegister(buf.ctypes.data, nbytes, 0)
+        err = rt.cudaHostRegister(buf.ctypes.data, nbytes, self._PORTABLE)
         if err != rt.cudaError.success:
             raise RuntimeError(f"cudaHostRegister of {nbytes} bytes failed: "
                                f"{rt.cudaGetErrorString(err)}")
         self._buf = buf
 
-    def upload(self, host: np.ndarray) -> torch.Tensor:
-        """A ``[n, C, T]`` host slab (n ≤ the buffer's rows) → the device."""
-        if self._device.type != "cuda":
+    def upload(self, host: np.ndarray, device: torch.device) -> torch.Tensor:
+        """A ``[n, C, T]`` host slab (n ≤ the buffer's rows) → ``device``."""
+        if device.type != "cuda":
             return torch.from_numpy(np.ascontiguousarray(host, np.float32))
         n = host.shape[0]
         np.copyto(self._buf[:n], host)
-        return torch.from_numpy(self._buf[:n]).to(self._device,
-                                                  non_blocking=True)
+        return torch.from_numpy(self._buf[:n]).to(device, non_blocking=True)
 
     def close(self) -> None:
         if self._buf is not None:
-            _sync(self._device)            # no copy may still read it
+            for card in self._cards:
+                _sync(card)                # no copy may still read it
             rt = torch.cuda.cudart()
             rt.cudaHostUnregister(self._buf.ctypes.data)
             self._buf = self._mem = None
+
+
+@dataclass
+class _Shard:
+    """One device's part of the files axis: rows ``rows`` of the stack,
+    their prepared features, temporal shifts, lengths and spectra cache on
+    ``device`` (a single-device database is one shard of every row)."""
+
+    device: torch.device
+    rows: slice
+    xs: torch.Tensor
+    shifts: torch.Tensor
+    lens: torch.Tensor
+    spectra: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 # ---------------------------------------------------------------------------
@@ -605,24 +625,38 @@ def _rerank_window_math(xs_b, shifts_t, file_idx, frames, tmpl_t, tmpl_s,
     return sim.to(torch.float32), boost.to(torch.float32)
 
 
-def _pad_rows_of(count: int) -> int:
-    """Files-axis padding (zero rows, lens 0 — masked everywhere) to a
-    :data:`_QUERY_CHUNK` multiple once the database spans several query
-    ranges.  Idempotent: a count that is already padded pads by 0, so a
-    pre-padded ``_prestacked`` store passes through unchanged."""
+def _pad_rows_of(count: int, mesh=None) -> int:
+    """Files-axis padding (zero rows, lens 0 — masked everywhere): to a
+    :data:`_QUERY_CHUNK` multiple once a single-device database spans
+    several query ranges, or to a multiple of the shard count under a
+    ``mesh`` (which has no query-range padding: each shard is stepped
+    through in ranges of its own).  Idempotent: a count that is already
+    padded pads by 0, so a pre-padded ``_prestacked`` store passes through
+    unchanged."""
+    if mesh is not None:
+        return mesh.pad_rows(count)
     if count > _QUERY_CHUNK:
         return -count % _QUERY_CHUNK
     return 0
 
 
+def _ranges(rows: slice, size: int):
+    """``rows`` cut into consecutive slices of at most ``size``."""
+    return [slice(o, min(o + size, rows.stop))
+            for o in range(rows.start, rows.stop, size)]
+
+
 class FeatureDatabase:
-    """Normalized, group-shifted feature matrices resident on one device.
+    """Normalized, group-shifted feature matrices resident on one device,
+    or sharded over a files mesh.
 
     ``entries``: ``(name, features[C, T])`` pairs (e.g. loaded from
     ``*_feat.aif``).  ``norm``: the ``feat_norms.aif`` matrix or ``None``.
     ``device``: ``"cuda"`` (default), ``"cuda:N"`` or ``"cpu"``; every
     device tensor of the database lives there, and asking for CUDA without
-    a card raises.  ``storage_dtype``, ``cache_spectra``, ``raw_store`` and
+    a card raises.  ``mesh``: a :class:`~.sweep.FilesMesh` of one process,
+    which then decides the devices (see the module docstring).
+    ``storage_dtype``, ``cache_spectra``, ``raw_store`` and
     ``time_capacity``: the capacity modes of the module docstring.
     """
 
@@ -635,13 +669,17 @@ class FeatureDatabase:
                  raw_store: str = "memory", time_capacity=None,
                  num_temporal: int = 1, device="cuda",
                  _prestacked=None) -> None:
-        _reject_unported(mesh)
+        if mesh is not None and mesh.spans_processes:
+            raise NotImplementedError(
+                "mesh: a database sharded across processes is not "
+                "supported (stage one per process)")
         if raw_store not in ("memory", "memmap"):
             raise ValueError(f"raw_store {raw_store!r}")
         store_dtype = torch.float32 if storage_dtype is None \
             else _real_dtype(storage_dtype, "storage_dtype")
         pack = _spectra_pack(cache_spectra)
-        dev = resolve(device)
+        devices = [resolve(device)] if mesh is None else list(mesh.devices)
+        dev = devices[0]
         # observer protocol for minutes-long stagings (the reference's
         # checkAborted/progress pattern, FeatureCorrelationImpl.scala:164,
         # 402): ``progress`` receives fractions in [0, 1]; ``check_aborted``
@@ -661,7 +699,7 @@ class FeatureDatabase:
         if _prestacked is not None:
             raw, lens = _prestacked
             self.files = list(entries)
-            pad_rows = _pad_rows_of(raw.shape[0])
+            pad_rows = _pad_rows_of(raw.shape[0], mesh)
             if pad_rows:
                 raw = np.concatenate(
                     [raw, np.zeros((pad_rows,) + raw.shape[1:], raw.dtype)])
@@ -671,7 +709,8 @@ class FeatureDatabase:
             # through staging and for the life of the database (entries may
             # be a one-shot generator when time_capacity is given)
             raw, lens, self.files = _stack_memmap(
-                entries, pad_multiple, time_capacity, _pad_rows_of,
+                entries, pad_multiple, time_capacity,
+                lambda count: _pad_rows_of(count, mesh),
                 check_aborted=check_aborted)
         else:
             self.files = [name for name, _ in entries]
@@ -681,7 +720,7 @@ class FeatureDatabase:
             # pad_stack with the files-axis padding rows allocated up front
             # (one host copy of the stack, not two)
             raw, lens = pad_stack(
-                mats + [mats[0][:, :0]] * _pad_rows_of(len(mats)),
+                mats + [mats[0][:, :0]] * _pad_rows_of(len(mats), mesh),
                 multiple=pad_multiple)
             del mats
         if num_temporal >= raw.shape[1]:
@@ -693,37 +732,51 @@ class FeatureDatabase:
         self._lens = np.asarray(lens, np.int32)
         self.norm = norm
         self._device = dev
+        self._mesh = mesh
+        self._store_dtype = store_dtype
         # retained for incremental add_files/remove_files and restaging
         self._pad_multiple = pad_multiple
         self._raw_store = raw_store
         self._storage_dtype = storage_dtype
         self._cache_spectra_mode = cache_spectra
-        self._lens_dev = self._put_lens()
 
-        # slab-wise staging: each ≤ _QUERY_CHUNK-file slab is uploaded
-        # through one page-locked buffer, prepared by the prep kernel in
-        # float32 and copied in place into the preallocated resident tensor
-        # (a reduced storage dtype rounds to nearest even in that copy, as
-        # XLA's cast does) — peak device memory ≈ the database + one slab's
-        # input and output
+        # one shard per device of the mesh, over its contiguous rows (one
+        # shard of every row on a single device)
         B, C, T = raw.shape
+        rows = [slice(0, B)] if mesh is None else mesh.split(B)
+        self._shards = [
+            _Shard(d, r, torch.empty((r.stop - r.start, C, T),
+                                     dtype=store_dtype, device=d),
+                   torch.empty(r.stop - r.start, dtype=torch.float32,
+                               device=d), None)
+            for d, r in zip(devices, rows)]
+        self._put_lens()
+
+        # slab-wise staging: each ≤ _QUERY_CHUNK-file slab of a shard is
+        # uploaded through one page-locked buffer, prepared by the prep
+        # kernel in float32 on the shard's device and copied in place into
+        # the preallocated resident tensor (a reduced storage dtype rounds
+        # to nearest even in that copy, as XLA's cast does) — peak device
+        # memory ≈ the database + one slab's input and output
         w_feat = 0.7 if cache_spectra else 1.0
-        self._xs = torch.empty((B, C, T), dtype=store_dtype, device=dev)
-        self._shifts = torch.empty(B, dtype=torch.float32, device=dev)
-        slab = _HostSlab((min(B, _QUERY_CHUNK), C, T), dev)
+        slab = _HostSlab((min(max(r.stop - r.start for r in rows),
+                              _QUERY_CHUNK), C, T), devices)
         try:
-            for o in range(0, B, _QUERY_CHUNK):
-                check_aborted()
-                s = slice(o, min(o + _QUERY_CHUNK, B))
-                xs_p, sh_p = prepare_database(
-                    slab.upload(raw[s]), norm, self._lens_dev[s],
-                    num_temporal=num_temporal, device=dev)
-                self._xs[s].copy_(xs_p)
-                self._shifts[s].copy_(sh_p)
-                del xs_p, sh_p
-                _sync(dev)             # one slab in flight at a time
-                _drop_memmap_pages(raw)   # keep a memmap store's RSS flat
-                progress(w_feat * min(1.0, s.stop / B))
+            for sh in self._shards:
+                for s in _ranges(slice(0, sh.rows.stop - sh.rows.start),
+                                 _QUERY_CHUNK):
+                    check_aborted()
+                    g = slice(sh.rows.start + s.start,
+                              sh.rows.start + s.stop)
+                    xs_p, sh_p = prepare_database(
+                        slab.upload(raw[g], sh.device), norm, sh.lens[s],
+                        num_temporal=num_temporal, device=sh.device)
+                    sh.xs[s].copy_(xs_p)
+                    sh.shifts[s].copy_(sh_p)
+                    del xs_p, sh_p
+                    _sync(sh.device)       # one slab in flight at a time
+                    _drop_memmap_pages(raw)   # keep a memmap store's RSS flat
+                    progress(w_feat * min(1.0, g.stop / B))
         finally:
             slab.close()
 
@@ -733,49 +786,78 @@ class FeatureDatabase:
         # real dtype: the compact cache, X alone as planar (re, im) of that
         # dtype, C·(N/2 + 1)·4 bytes per file at bf16; its window sums come
         # from tables computed per query step (never stored)
-        self._spectra = None
         self._spectra_pack = pack
         self._spectra_reduced = pack is not None
         if cache_spectra:
             bins = K._fft_len(T) // 2 + 1
-            shapes = [((B, C, bins), torch.complex64),
-                      ((B, 2, bins), torch.complex64)] if pack is None \
-                else [((B, C, bins), pack)] * 2
-            bufs = tuple(torch.empty(shape, dtype=dt, device=dev)
-                         for shape, dt in shapes)
-            for o in range(0, B, _SPECTRA_CHUNK):
-                check_aborted()
-                s = slice(o, min(o + _SPECTRA_CHUNK, B))
-                for buf, part in zip(bufs, self._spectra_of(self._xs[s])):
-                    if part.dtype != buf.dtype:
-                        raise TypeError(f"spectra cache must be {buf.dtype}, "
-                                        f"got {part.dtype}")
-                    buf[s].copy_(part)
-                _sync(dev)
-                progress(0.7 + 0.3 * min(1.0, s.stop / B))
-            self._spectra = bufs
+            for sh in self._shards:
+                n = sh.rows.stop - sh.rows.start
+                shapes = [((n, C, bins), torch.complex64),
+                          ((n, 2, bins), torch.complex64)] if pack is None \
+                    else [((n, C, bins), pack)] * 2
+                bufs = tuple(torch.empty(shape, dtype=dt, device=sh.device)
+                             for shape, dt in shapes)
+                for s in _ranges(slice(0, n), _SPECTRA_CHUNK):
+                    check_aborted()
+                    for buf, part in zip(bufs, self._spectra_of(sh.xs[s])):
+                        if part.dtype != buf.dtype:
+                            raise TypeError(f"spectra cache must be "
+                                            f"{buf.dtype}, got {part.dtype}")
+                        buf[s].copy_(part)
+                    _sync(sh.device)
+                    progress(0.7 + 0.3 * min(1.0, (sh.rows.start + s.stop)
+                                             / B))
+                sh.spectra = bufs
         # exact re-rank backend: candidate windows re-score on the device
         # whenever the resident features are f32 (the compact cache
         # included); bf16 features take the host f64 mirror.  Explicit
         # ``rerank_device=True`` on an ineligible configuration is an error
         # (a reduced-precision "exact" re-rank would not be exact).
-        eligible = self._xs.dtype == torch.float32
+        eligible = store_dtype == torch.float32
         if rerank_device is None:
             self._rerank_device = eligible
         else:
             if rerank_device and not eligible:
                 raise ValueError(
                     "rerank_device=True needs float32 features "
-                    f"(got dtype {self._xs.dtype})")
+                    f"(got dtype {store_dtype})")
             self._rerank_device = bool(rerank_device)
         # construction reports staging errors here, not at query time
-        _sync(dev)
+        for d in set(devices):
+            _sync(d)
         progress(1.0)
 
     @property
     def num_files(self) -> int:
         """Live file count (tombstoned entries excluded)."""
         return sum(1 for n in self.files if n is not None)
+
+    @property
+    def _num_shards(self) -> int:
+        """Files-axis shard count (1 without a mesh)."""
+        return len(self._shards)
+
+    def _one_shard(self) -> _Shard:
+        if len(self._shards) != 1:
+            raise AttributeError("a sharded database has one set of device "
+                                 "tensors per shard (_shards)")
+        return self._shards[0]
+
+    @property
+    def _xs(self) -> torch.Tensor:
+        """The resident prepared features of a single-device database."""
+        return self._one_shard().xs
+
+    @property
+    def _shifts(self) -> torch.Tensor:
+        """The temporal shifts of a single-device database."""
+        return self._one_shard().shifts
+
+    @property
+    def _spectra(self):
+        """The spectra cache of a single-device database (None without
+        one)."""
+        return self._one_shard().spectra
 
     def _spectra_of(self, xs: torch.Tensor):
         """Spectra-cache rows of prepared features ``xs``: complex64 ``(X,
@@ -788,7 +870,7 @@ class FeatureDatabase:
     def _reduced(self) -> bool:
         """Reduced-precision resident data (bf16 features or the compact
         spectra cache), which turns the exact re-rank on by default."""
-        return self._xs.dtype != torch.float32 or self._spectra_reduced
+        return self._store_dtype != torch.float32 or self._spectra_reduced
 
     # -- incremental updates -----------------------------------------------
 
@@ -811,7 +893,7 @@ class FeatureDatabase:
             self.files[i] = None
             self._lens[i] = 0
             self._raw[i] = 0.0
-        self._lens_dev = self._put_lens()
+        self._put_lens()
 
     def add_files(self, entries: Sequence[Tuple[str, np.ndarray]],
                   progress=None, check_aborted=None) -> None:
@@ -836,6 +918,12 @@ class FeatureDatabase:
             return
         check_aborted()
         entries = self._dedup_new(entries)
+        if self._mesh is not None:
+            # a row write into a sharded files axis would have to find its
+            # shard's free slots: restage with the mesh kept, as the JAX
+            # package does
+            return self._restage(entries, progress=progress,
+                                 check_aborted=check_aborted)
         names = [n for n, _ in entries]
         feats = [np.asarray(f, np.float32) for _, f in entries]
         C, t_cap = self._raw.shape[1], self._raw.shape[2]
@@ -857,10 +945,10 @@ class FeatureDatabase:
             raw_new = np.pad(
                 raw_new, ((0, 0), (0, 0), (0, t_cap - raw_new.shape[2])))
         dev = self._device
-        slab = _HostSlab(raw_new.shape, dev)
+        slab = _HostSlab(raw_new.shape, [dev])
         try:
             xs_p, sh_p = prepare_database(
-                slab.upload(raw_new), self.norm,
+                slab.upload(raw_new, dev), self.norm,
                 torch.as_tensor(lens_new, device=dev),
                 num_temporal=self._num_temporal, device=dev)
             # the resident dtype, rounded as staging rounds it
@@ -893,7 +981,7 @@ class FeatureDatabase:
                 self.files.append(names[j])      # tail slots are in order
             self._lens[slot] = lens_new[j]
             self._raw[slot] = raw_new[j]
-        self._lens_dev = self._put_lens()
+        self._put_lens()
         _sync(dev)
         progress(1.0)
 
@@ -910,10 +998,11 @@ class FeatureDatabase:
             seen.add(n)
         return list(entries)
 
-    def _put_lens(self) -> torch.Tensor:
-        """Host lens vector → the device."""
-        return torch.as_tensor(self._lens, dtype=torch.int32,
-                               device=self._device)
+    def _put_lens(self) -> None:
+        """Host lens vector → each shard's rows on its device."""
+        for sh in self._shards:
+            sh.lens = torch.as_tensor(self._lens[sh.rows], dtype=torch.int32,
+                                      device=sh.device)
 
     def _restage(self, new_entries: Sequence[Tuple[str, np.ndarray]],
                  progress=None, check_aborted=None) -> None:
@@ -928,7 +1017,8 @@ class FeatureDatabase:
         # live lens and the new entries (the restage may exist precisely
         # because the old capacity was outgrown)
         kwargs = dict(
-            step_size=self.step_size, pad_multiple=self._pad_multiple,
+            step_size=self.step_size, mesh=self._mesh,
+            pad_multiple=self._pad_multiple,
             storage_dtype=self._storage_dtype,
             cache_spectra=self._cache_spectra_mode,
             rerank_device=self._rerank_device, raw_store=self._raw_store,
@@ -963,70 +1053,84 @@ class FeatureDatabase:
     # -- queries -------------------------------------------------------------
 
     def _chunks(self):
-        """Query ranges of the files axis (one range when unchunked)."""
-        b = self._xs.shape[0]
-        if b <= _QUERY_CHUNK:
-            return [slice(0, b)]
-        return [slice(o, min(o + _QUERY_CHUNK, b))
-                for o in range(0, b, _QUERY_CHUNK)]
+        """Query ranges of the files axis: ``(shard index, shard-local
+        slice)`` of at most :data:`_QUERY_CHUNK` files each (one range per
+        shard when unchunked)."""
+        return [(i, rng) for i, sh in enumerate(self._shards)
+                for rng in _ranges(slice(0, sh.rows.stop - sh.rows.start),
+                                   _QUERY_CHUNK)]
 
     def _spectra_steps(self, lanes: int):
-        """Yield ``(files slice, X, aux, use_sums)`` (see :func:`_trace`)
-        over the whole files axis, each step within :data:`_STEP_BYTES` of
-        transients for ``lanes`` traces per file: the resident cache's rows,
-        the compact cache's rows unpacked beside a window-sum table of the
-        step's resident features (computed here, never stored), or spectra
-        computed here."""
+        """Yield ``(shard index, shard-local files slice, X, aux,
+        use_sums)`` (see :func:`_trace`) over the whole files axis, shard by
+        shard, each step within :data:`_STEP_BYTES` of transients for
+        ``lanes`` traces per file and within one :data:`_QUERY_CHUNK` range:
+        the resident cache's rows, the compact cache's rows unpacked beside
+        a window-sum table of the step's resident features (computed here,
+        never stored), or spectra computed here."""
         nt = self._num_temporal
         compact = self._spectra_reduced
-        step = _files_step(self._xs.shape[1], self._xs.shape[2], lanes,
-                           compact, nt)
-        for sl in self._chunks():
-            for o in range(sl.start, sl.stop, step):
-                s = slice(o, min(o + step, sl.stop))
-                if self._spectra is None:
-                    yield (s,) + K.trace_spectra(
-                        self._xs[s], num_temporal=nt) + (False,)
+        C, T = self._raw.shape[1], self._raw.shape[2]
+        step = _files_step(C, T, lanes, compact, nt)
+        for i, rng in self._chunks():
+            sh = self._shards[i]
+            for s in _ranges(rng, step):
+                if sh.spectra is None:
+                    yield (i, s) + K.trace_spectra(
+                        sh.xs[s], num_temporal=nt) + (False,)
                 elif compact:
-                    yield (s, K.unpack_spectra(*(b[s] for b in self._spectra)),
-                           K.window_sum_table(self._xs[s], nt), True)
+                    yield (i, s, K.unpack_spectra(*(b[s] for b in sh.spectra)),
+                           K.window_sum_table(sh.xs[s], nt), True)
                 else:
-                    yield (s,) + tuple(b[s] for b in self._spectra) + (False,)
+                    yield (i, s) + tuple(b[s] for b in sh.spectra) + (False,)
+
+    def _gather(self, parts):
+        """``[(shard index, tuple of device tensors)]`` in row order → the
+        tuple of host arrays over all rows: each column concatenated on its
+        shard's device, then across shards on the host.  Every launch is
+        queued before the first fetch, so the shards' devices run
+        together."""
+        by_shard: dict = {}
+        for i, out in parts:
+            by_shard.setdefault(i, []).append(out)
+        cols = [[torch.cat(c) for c in zip(*outs)]
+                for outs in by_shard.values()]
+        return tuple(np.concatenate([_host(c[j]) for c in cols])
+                     for j in range(len(cols[0])))
 
     def _query_all(self, templates, temp_weight: float, max_boost: float,
                    k: int, with_traces: bool = False):
         """Every template (all of one length) against every row, sharing
         each step's spectra → per template the host arrays ``(vals, idx,
         boosts_k[, sims, boosts])`` over all rows."""
-        t_padded = self._xs.shape[2]
+        t_padded = self._raw.shape[2]
         parts = [[] for _ in templates]
-        for s, X, aux, use_sums in self._spectra_steps(lanes=1):
-            shifts, lens = self._shifts[s], self._lens_dev[s]
+        for i, s, X, aux, use_sums in self._spectra_steps(lanes=1):
+            shifts, lens = self._shards[i].shifts[s], self._shards[i].lens[s]
             for q, t in enumerate(templates):
                 sims, boosts = _trace(X, aux, use_sums, t_padded, t, shifts,
                                       temp_weight, max_boost,
                                       self._num_temporal)
                 out = _topk_epilogue(sims, boosts, lens, t.num_frames, k)
-                parts[q].append(out + (sims, boosts) if with_traces else out)
-        return [tuple(_host(torch.cat(col)) for col in zip(*p))
-                for p in parts]
+                parts[q].append(
+                    (i, out + (sims, boosts) if with_traces else out))
+        return [self._gather(p) for p in parts]
 
     def _punch_all(self, pairs, tw_in: float, tw_out: float,
                    max_boost: float, k: int):
         """Every ``(punch_in, punch_out, min_punch, max_punch)`` pair (all of
         one shape) against every row, sharing each step's spectra → per
         pair the six host arrays of :func:`_punch_from_spectra`."""
-        t_padded = self._xs.shape[2]
+        t_padded = self._raw.shape[2]
         parts = [[] for _ in pairs]
-        for s, X, aux, use_sums in self._spectra_steps(lanes=2):
-            shifts, lens = self._shifts[s], self._lens_dev[s]
+        for i, s, X, aux, use_sums in self._spectra_steps(lanes=2):
+            shifts, lens = self._shards[i].shifts[s], self._shards[i].lens[s]
             for q, (p_in, p_out, mp, xp) in enumerate(pairs):
-                parts[q].append(_punch_from_spectra(
+                parts[q].append((i, _punch_from_spectra(
                     X, aux, use_sums, t_padded, p_in, p_out, shifts, lens,
                     tw_in, tw_out, max_boost, int(mp), int(xp) - int(mp) + 1,
-                    num_temporal=self._num_temporal, k=k))
-        return [tuple(_host(torch.cat(col)) for col in zip(*p))
-                for p in parts]
+                    num_temporal=self._num_temporal, k=k)))
+        return [self._gather(p) for p in parts]
 
     def _trim(self, *arrays, axis: int = 0):
         """Drop the staging-padding rows beyond the real file count."""
@@ -1065,7 +1169,7 @@ class FeatureDatabase:
                 raise ValueError(
                     f"template ({template.num_frames} frames) exceeds the "
                     f"database's padded time capacity "
-                    f"{self._xs.shape[2]} — no file can contain it, and "
+                    f"{self._raw.shape[2]} — no file can contain it, and "
                     "there is no trace to return")
             return self._masked_query_result(k)
         got = self._query_all([template], temp_weight, max_boost, k_dev,
@@ -1090,7 +1194,7 @@ class FeatureDatabase:
         candidates the lossy device sims pushed just outside the top-k.
         May still exceed the window count when ``k`` itself does —
         :meth:`_k_clamp` bounds the final device k in every query path."""
-        return max(k, min(4 * k, self._xs.shape[2] - tmpl_frames + 1))
+        return max(k, min(4 * k, self._raw.shape[2] - tmpl_frames + 1))
 
     def _k_clamp(self, k_dev: int, *tmpl_frames: int) -> int:
         """Largest device top-k the queries can take: their window axis has
@@ -1099,7 +1203,7 @@ class FeatureDatabase:
         file — where the serving rule (files shorter than the template are
         excluded from results) leaves nothing to search: callers
         short-circuit to an all-masked result."""
-        w = min(self._xs.shape[2] - L + 1 for L in tmpl_frames)
+        w = min(self._raw.shape[2] - L + 1 for L in tmpl_frames)
         return max(0, min(k_dev, w))
 
     def _check_template(self, *templates: "InputTemplate") -> None:
@@ -1205,27 +1309,49 @@ class FeatureDatabase:
                                     frames: np.ndarray,
                                     template: "InputTemplate",
                                     temp_weight: float, max_boost: float):
-        """Launch the device re-rank and return the DEVICE ``(sims,
-        boosts)`` tensors without fetching, so callers with several
-        independent re-ranks (the punch in+out pair) launch them all, then
-        fetch."""
-        dev = self._device
-        return _rerank_window_math(
-            self._xs, self._shifts,
-            torch.as_tensor(np.asarray(file_idx, np.int64), device=dev),
-            torch.as_tensor(np.asarray(frames, np.int64), device=dev),
-            template.device_temporal(dev), template.device_spectral(dev),
-            template.temporal_std, template.spectral_std,
-            template.ln_avg_loudness, temp_weight, max_boost,
-            num_temporal=self._num_temporal)
+        """Launch the device re-rank without fetching, so callers with
+        several independent re-ranks (the punch in+out pair) launch them
+        all, then fetch (:meth:`_fetch_scores`).  Each candidate is scored
+        on the shard that owns its file; returns ``[(positions, sims,
+        boosts)]``, the device tensors of each shard's candidates."""
+        file_idx = np.asarray(file_idx, np.int64)
+        frames = np.asarray(frames, np.int64)
+        pending = []
+        for sh in self._shards:
+            sel = np.flatnonzero((file_idx >= sh.rows.start)
+                                 & (file_idx < sh.rows.stop))
+            if not sel.size:
+                continue
+            d = sh.device
+            pending.append((sel,) + _rerank_window_math(
+                sh.xs, sh.shifts,
+                torch.as_tensor(file_idx[sel] - sh.rows.start, device=d),
+                torch.as_tensor(frames[sel], device=d),
+                template.device_temporal(d), template.device_spectral(d),
+                template.temporal_std, template.spectral_std,
+                template.ln_avg_loudness, temp_weight, max_boost,
+                num_temporal=self._num_temporal))
+        return len(file_idx), pending
+
+    @staticmethod
+    def _fetch_scores(launched):
+        """The host ``(sims[M], boosts[M])`` of a launched re-rank, each
+        shard's scores written at its candidates' positions (an exact
+        select-scatter: NaN stays NaN)."""
+        m, pending = launched
+        sims = np.zeros(m, np.float32)
+        boosts = np.zeros(m, np.float32)
+        for sel, s, b in pending:
+            sims[sel] = _host(s)
+            boosts[sel] = _host(b)
+        return sims, boosts
 
     def _device_window_scores(self, file_idx: np.ndarray, frames: np.ndarray,
                               template: "InputTemplate", temp_weight: float,
                               max_boost: float):
         """:meth:`_device_window_scores_async` + fetch."""
-        sims, boosts = self._device_window_scores_async(
-            file_idx, frames, template, temp_weight, max_boost)
-        return _host(sims), _host(boosts)
+        return self._fetch_scores(self._device_window_scores_async(
+            file_idx, frames, template, temp_weight, max_boost))
 
     #: candidates per block of the host f64 re-rank: a block's float64
     #: windows (~12 MB for 14 × 861 frames) stay in cache across its ~10
@@ -1355,7 +1481,7 @@ class FeatureDatabase:
                 d_out = self._device_window_scores_async(
                     fi, t_out, punch_out, tw_out, max_boost)
                 (in_sims, b_in), (out_sims, b_out) = (
-                    tuple(_host(t) for t in d) for d in (d_in, d_out))
+                    self._fetch_scores(d) for d in (d_in, d_out))
             else:
                 in_sims, b_in = self._window_scores(
                     fi, t_in, punch_in, tw_in, max_boost)
@@ -1607,8 +1733,10 @@ class FeatureDatabase:
 
     @staticmethod
     def load(path, mesh=None, **stage_kwargs) -> "FeatureDatabase":
-        """Re-stage a :meth:`save`d database (from either package).
-        ``stage_kwargs`` pass through to the constructor (e.g. ``device=``,
+        """Re-stage a :meth:`save`d database (from either package, saved
+        under any topology: the archive holds no padding rows, and staging
+        pads the files axis for ``mesh`` anew).  ``stage_kwargs`` pass
+        through to the constructor (e.g. ``device=``,
         ``cache_spectra="bf16"``, or ``progress=``/``check_aborted=`` for
         the staging observer protocol).
 
@@ -1616,9 +1744,8 @@ class FeatureDatabase:
         by row straight into the unlinked temp-file store: peak host RSS
         stays O(one row + the deflate window) instead of the decompressed
         stack, the bound :meth:`save` keeps on the way out."""
-        _reject_unported(mesh)
         if stage_kwargs.get("raw_store") == "memmap":
-            return FeatureDatabase._load_memmap(path, stage_kwargs)
+            return FeatureDatabase._load_memmap(path, mesh, stage_kwargs)
         with np.load(path, allow_pickle=False) as z:
             norm = z["norm"] if z["norm"].size else None
             # plain np.savez archives / pre-round-4 saves lack the member
@@ -1627,11 +1754,11 @@ class FeatureDatabase:
                 int(z["num_temporal"]) if "num_temporal" in z.files else 1)
             return FeatureDatabase(
                 [str(f) for f in z["files"]], norm,
-                step_size=int(z["step_size"]),
+                step_size=int(z["step_size"]), mesh=mesh,
                 _prestacked=(z["raw"], z["lens"]), **stage_kwargs)
 
     @staticmethod
-    def _load_memmap(path, stage_kwargs) -> "FeatureDatabase":
+    def _load_memmap(path, mesh, stage_kwargs) -> "FeatureDatabase":
         """Streamed :meth:`load` for ``raw_store="memmap"``: decompress the
         ``raw.npy`` member row by row from the zip into a fresh
         :func:`_stack_memmap` store (files-axis padding included, so the
@@ -1683,11 +1810,11 @@ class FeatureDatabase:
                 # frame capacity exact (it already carries the save-time
                 # padding)
                 raw, lens_p, names = _stack_memmap(
-                    rows(), 1, t_cap, _pad_rows_of,
+                    rows(), 1, t_cap, lambda c: _pad_rows_of(c, mesh),
                     check_aborted=check_aborted)
         return FeatureDatabase(
             names, norm if norm.size else None, step_size=step_size,
-            _prestacked=(raw, lens_p), **stage_kwargs)
+            mesh=mesh, _prestacked=(raw, lens_p), **stage_kwargs)
 
     @staticmethod
     def stage(entries, norm, observer=None, name: str = "database staging",
@@ -1717,7 +1844,6 @@ class FeatureDatabase:
 
         from ..analysis.common import load_norm, read_features
 
-        _reject_unported(mesh)
         norm = load_norm(folder, num_coeffs) if normalize else None
         entries = []
         for name in sorted(os.listdir(folder)):
@@ -1727,4 +1853,5 @@ class FeatureDatabase:
             if meta.num_coeffs != num_coeffs or meta.step_size != step_size:
                 continue
             entries.append((meta.audio_input, read_features(meta)))
-        return FeatureDatabase(entries, norm, step_size, device=device)
+        return FeatureDatabase(entries, norm, step_size, mesh=mesh,
+                               device=device)

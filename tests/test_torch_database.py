@@ -22,6 +22,7 @@ from strugatzki_tpu.kernels import mathref as M
 from strugatzki_tpu.parallel import database as JD
 from strugatzki_tpu_torch.analysis.correlation import InputTemplate as PT
 from strugatzki_tpu_torch.parallel import database as PD
+from strugatzki_tpu_torch.parallel import sweep as PW
 
 SIM_TOL = 3e-5
 BOOST_RTOL = 1e-4
@@ -447,11 +448,13 @@ def test_pad_rows_and_steps_follow_the_jax_package():
 
 
 @pytest.mark.parametrize("kw,exc,what", [
-    (dict(mesh=object()), NotImplementedError, "mesh"),
+    (dict(mesh=PW.FilesMesh((torch.device("cpu"),) * 2, owners=(0, 1))),
+     NotImplementedError, "mesh"),
     (dict(cache_spectra="complex64"), ValueError, "complex64")])
 def test_unported_modes_raise(entries, kw, exc, what):
-    """``mesh`` is the one mode not ported; a complex compact-cache dtype
-    is refused rather than read back as a full complex64 cache."""
+    """A mesh that spans processes is the one mode not ported (the JAX
+    package's tests never stage such a database); a complex compact-cache
+    dtype is refused rather than read back as a full complex64 cache."""
     with pytest.raises(exc, match=what):
         PD.FeatureDatabase(entries[:2], None, device="cpu", **kw)
 

@@ -467,3 +467,70 @@ def test_cli_formatting_equals_the_original():
         assert _fields(pcli._mk_span(a, b, 44100.0)) == \
             _fields(jcli._mk_span(a, b, 44100.0))
     assert pcli._USAGE == jcli._USAGE and pcli.NAME == jcli.NAME
+
+
+def test_logging_trace_and_profile(tmp_path, monkeypatch):
+    """``runtime/logging.py`` held to tests/test_cli_punchout.py:158-175: the
+    ``strugatzki`` logger (its own handler, no propagation), ``trace``
+    logging its span at DEBUG in the original's words, and ``profile`` a
+    no-op without ``STRUGATZKI_PROFILE``; with it, the port writes a
+    torch.profiler Chrome trace where the JAX package writes a jax.profiler
+    trace."""
+    import json
+    import logging
+
+    from strugatzki_tpu.runtime import logging as jlog
+    from strugatzki_tpu_torch.runtime import logging as plog
+
+    assert plog.logger is jlog.logger               # one logging.getLogger
+    assert plog.logger.name == "strugatzki" and not plog.logger.propagate
+    assert len(plog.logger.handlers) >= 1
+    records = []
+
+    class H(logging.Handler):
+        def emit(self, r):
+            records.append(r.getMessage())
+
+    h = H()
+    plog.logger.addHandler(h)
+    old = plog.logger.level
+    plog.logger.setLevel(logging.DEBUG)
+    try:
+        for mod in (plog, jlog):
+            with mod.trace("unit-span", file="x.aif"):
+                pass
+        assert len(records) == 2
+        assert all("unit-span took" in m and m.endswith("file=x.aif")
+                   for m in records)
+        monkeypatch.delenv("STRUGATZKI_PROFILE", raising=False)
+        with plog.profile("nothing"):
+            pass
+        assert not list(tmp_path.iterdir())
+        monkeypatch.setenv("STRUGATZKI_PROFILE", str(tmp_path / "prof"))
+        with plog.profile("span"):
+            np.fft.rfft(np.ones(64))
+        trace = json.loads((tmp_path / "prof" / "span.json").read_text())
+        assert "traceEvents" in trace
+    finally:
+        plog.logger.removeHandler(h)
+        plog.logger.setLevel(old)
+
+
+@pytest.mark.parametrize("level,want", [("DEBUG", "10"), ("15", "15"),
+                                        ("bogus", "30")])
+def test_logging_level_from_the_environment(level, want):
+    """``STRUGATZKI_LOG`` sets the level as the original reads it: a name,
+    a number, or WARNING with a warning for anything else."""
+    import subprocess
+    import sys
+
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from strugatzki_tpu_torch.runtime.logging import logger; "
+            "print(logger.level)")
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code, repo], text=True,
+                       capture_output=True, timeout=120,
+                       env=dict(os.environ, STRUGATZKI_LOG=level))
+    assert r.returncode == 0 and r.stdout.split()[-1] == want, r
+    assert ("not a logging level" in r.stderr) == (level == "bogus")

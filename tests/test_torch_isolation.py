@@ -1,6 +1,7 @@
 """The port stands alone: its analyses (``-f``, ``--stats``, ``-c``,
 ``-s``, ``-x``, ``-y``, and a resident ``FeatureDatabase`` queried, saved
-and loaded, in its capacity modes too) run without importing jax or the JAX
+and loaded, in its capacity modes too), its files mesh, its multi-process
+module and its logging module run without importing jax or the JAX
 package ``strugatzki_tpu``, in the repository and from a copy of the port
 with no ``strugatzki_tpu/`` beside it; and ``chip_smoke.py`` fails loudly
 where there is no CUDA card."""
@@ -159,3 +160,45 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                        text=True, cwd=tmp_path, env=env, timeout=300)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+_MESH = textwrap.dedent("""
+    import os, sys
+    import numpy as np
+    import strugatzki_tpu_torch.runtime.logging as L
+    from strugatzki_tpu_torch import FeatureDatabase
+    from strugatzki_tpu_torch.analysis.correlation import InputTemplate
+    from strugatzki_tpu_torch.parallel import multihost as MH
+    from strugatzki_tpu_torch.parallel.sweep import sharded_long_novelty_trace
+    from strugatzki_tpu_torch.kernels import corr as K
+
+    MH.initialize(device="cpu")                 # one process: no group
+    mesh = MH.global_files_mesh(["cpu"] * 4)
+    rng = np.random.default_rng(0)
+    ents = [(f"f{i}.aif", np.abs(0.5 + 0.1 * rng.standard_normal((14, 300)))
+             .astype(np.float32)) for i in range(6)]
+    os.environ["STRUGATZKI_PROFILE"] = sys.argv[1]
+    with L.profile("mesh"), L.trace("mesh query", files=6):
+        db = FeatureDatabase(ents, None, mesh=mesh, cache_spectra=True)
+        res = db.query(InputTemplate(ents[4][1][:, 50:90].copy()), k=2)
+    assert res.frames[4, 0] == 50 and res.sims[4, 0] > 0.999
+    assert os.path.getsize(os.path.join(sys.argv[1], "mesh.json")) > 0
+    assert MH.process_allgather(res.frames).shape == (6, 2)
+    xs = K.shift_per_group(ents[0][1])[0]
+    assert sharded_long_novelty_trace(xs, 20, 0.5, mesh).shape == (261,)
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "strugatzki_tpu"))
+    assert not loaded, loaded
+    print("MESH_NO_JAX_OK")
+""")
+
+
+def test_mesh_multihost_and_logging_run_without_jax(tmp_path):
+    """A sharded database, the multi-process module (single-process) and
+    the logging module's ``trace`` and ``profile`` with jax and the JAX
+    package refused."""
+    r = subprocess.run([sys.executable, "-c", _REFUSE + _MESH,
+                        str(tmp_path)], capture_output=True, text=True,
+                       cwd=REPO, env=_env(), timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "MESH_NO_JAX_OK" in r.stdout

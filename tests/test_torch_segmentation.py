@@ -255,13 +255,31 @@ def test_silence_shorter_than_the_window():
     assert any(abs(b.pos // STEP - 400) <= 20 for b in ours)
 
 
+def _mirror_novelty(xs, h, tw, nw):
+    """The f64 mirror's blended ``correlateHalf`` at windows ``0..nw−1``
+    (FeatureSegmentationImpl.scala:107-133); a group of weight 0 is not
+    evaluated, as in the port and the JAX package."""
+    c = xs.shape[0]
+    out = np.empty(nw, np.float32)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        for t in range(nw):
+            w = xs[:, t:t + 2 * h]
+            sim_t = np.float32(M.correlate_half(1, h, w, 0, 0)) \
+                if tw > 0 else np.float32(0)
+            sim_s = np.float32(M.correlate_half(c - 1, h, w, 0, 1)) \
+                if tw < 1 else np.float32(0)
+            out[t] = sim_t * np.float32(tw) + sim_s * np.float32(1 - tw)
+    return out
+
+
 def test_silence_longer_than_the_window_is_degenerate():
     """A window inside a silence longer than the window has a constant
     loudness row: its temporal ``correlateHalf`` is 0/0, NaN in the f64
-    mirror of the reference.  The FFT window sums leave round-off in place
-    of both zeros, so such windows carry noise (±inf, NaN or any finite
-    value) that differs between FFT libraries and precisions.  Everywhere
-    else the port holds the JAX package's curve."""
+    mirror of the reference.  The port finds those windows exactly and
+    writes NaN there, NaN for NaN with the mirror; the JAX package leaves
+    the FFT sums' round-off in their place (noise that differs between FFT
+    libraries).  Everywhere else the port holds the JAX package's curve
+    and the mirror's."""
     start, stop, h = 400, 520, 20
     feats = _with_silence(5, 800, start, stop)
     cfg = SegmentationConfig(normalize=False, corr_len=h * STEP,
@@ -271,12 +289,93 @@ def test_silence_longer_than_the_window_is_degenerate():
     got = PK.novelty_trace(torch.from_numpy(xs), h, 0.5)[:nw].numpy()
     want = np.asarray(JK.novelty_trace(jnp.asarray(xs), h,
                                        jnp.float32(0.5)))[:nw]
+    ref = _mirror_novelty(xs, h, 0.5, nw)
     inside = (np.arange(nw) >= start) & (np.arange(nw) + 2 * h <= stop)
     assert inside.sum() == stop - start - 2 * h + 1
+    np.testing.assert_array_equal(np.isnan(got), inside)
+    np.testing.assert_array_equal(np.isnan(ref), inside)
     np.testing.assert_allclose(got[~inside], want[~inside], atol=2e-5, rtol=0)
-    with np.errstate(invalid="ignore"):
-        ref = M.correlate_half(1, h, feats[:, start:start + 2 * h], 0, 0)
-    assert np.isnan(ref)
+    np.testing.assert_allclose(got[~inside], ref[~inside], atol=2e-5, rtol=0)
+    # a batch of curves, the window's range taken per row, and a temporal
+    # weight of 0 (the temporal group is never evaluated: no NaN)
+    both = PK.novelty_trace(torch.from_numpy(np.stack([xs, xs])), h,
+                            0.5)[:, :nw].numpy()
+    np.testing.assert_array_equal(both[0], got)
+    np.testing.assert_array_equal(both[1], got)
+    assert np.isfinite(PK.novelty_trace(torch.from_numpy(xs), h,
+                                        0.0)[:nw].numpy()).all()
+
+
+def test_near_constant_windows_hold_the_mirror():
+    """Through a silence the extracted MFCC rows sit near one value and
+    differ only in their last digits: a window there has a variance far
+    below the FFT sums' round-off of the whole row, where the sums give
+    noise.  The port recomputes such windows from their cells with the
+    mirror's two passes, so the curve holds the f64 mirror at 2e-5
+    everywhere (NaN for NaN), the edges of the silence included."""
+    start, stop, h = 400, 520, 20
+    feats = _with_silence(5, 800, start, stop)
+    rng = np.random.default_rng(1)
+    feats[1:, start:stop] = (0.5 + 6e-8 * rng.integers(
+        -2, 3, (feats.shape[0] - 1, stop - start))).astype(np.float32)
+    cfg = SegmentationConfig(normalize=False, corr_len=h * STEP).build()
+    xs, nw, _, _ = PS._novelty_prep(feats, None, STEP, to_port(cfg))
+    for tw in (0.0, 0.5):
+        got = PK.novelty_trace(torch.from_numpy(xs), h, tw)[:nw].numpy()
+        ref = _mirror_novelty(xs, h, tw, nw)
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+        ok = ~np.isnan(ref)
+        np.testing.assert_allclose(got[ok], ref[ok], atol=2e-5, rtol=0)
+    assert np.isnan(got).sum() == stop - start - 2 * h + 1
+
+
+def test_constant_windows_take_nan_from_their_range():
+    """A window whose group is one constant (the loudness row inside a
+    silence, both groups in the padding past the file's end) is NaN from
+    its range alone and is not left to the recompute, so a curve whose
+    only ill-conditioned windows are constant recomputes none."""
+    start, stop, h = 400, 520, 20
+    feats = _with_silence(5, 800, start, stop)
+    cfg = SegmentationConfig(normalize=False, corr_len=h * STEP).build()
+    xs, nw, _, _ = PS._novelty_prep(feats, None, STEP, to_port(cfg))
+    t = np.arange(xs.shape[1] - 2 * h + 1)
+    past = t >= feats.shape[1]
+    assert past.any()
+    inside = (t >= start) & (t + 2 * h <= stop)
+    _, _, temporal, spectral = PK.novelty_sums(torch.from_numpy(xs), h, 0.5)
+    for (_, sim, bad), nan in ((temporal, inside | past), (spectral, past)):
+        assert not bad.any()
+        np.testing.assert_array_equal(np.isnan(sim.numpy()), nan)
+
+
+@pytest.mark.parametrize("num_breaks", [6, 12])
+def test_silence_breaks_differ_from_the_jax_package_only_at_the_silence(
+        num_breaks):
+    """The break replay over the repaired curve equals the replay over the
+    f64 mirror's curve: a NaN window never passes ``sim < lowest`` once the
+    set is full, so no break lands inside the silence.  The JAX package's
+    round-off there (−inf) takes a break at a window inside the silence
+    and pushes the weakest real break out; every other break is the
+    same."""
+    start, stop, h = 400, 520, 20
+    feats = _with_silence(5, 800, start, stop)
+    cfg = SegmentationConfig(normalize=False, corr_len=h * STEP,
+                             num_breaks=num_breaks,
+                             min_spacing=10 * STEP).build()
+    pcfg = to_port(cfg)
+    xs, nw, af_start, _ = PS._novelty_prep(feats, None, STEP, pcfg)
+    ours = PS.segment_features(feats, None, STEP, pcfg, device="cpu")
+    mirror = PS._select_breaks(_mirror_novelty(xs, h, 0.5, nw), af_start, h,
+                               STEP, pcfg)
+    _same_breaks(ours, mirror, 2e-5)
+    assert all(np.isfinite(b.sim) for b in ours)
+    inside = {(start + t + h) * STEP for t in range(stop - start - 2 * h + 1)}
+    jax_breaks = JS.segment_features(feats, None, STEP, cfg)
+    only_jax = [b for b in jax_breaks if b.pos not in {o.pos for o in ours}]
+    only_ours = [b for b in ours if b.pos not in {j.pos for j in jax_breaks}]
+    assert only_jax and all(b.pos in inside for b in only_jax)
+    assert len(only_ours) == len(only_jax)
+    assert max(b.sim for b in ours) == only_ours[-1].sim
 
 
 def test_copied_select_breaks_equals_the_original():
@@ -323,18 +422,20 @@ def test_abort_between_passes():
 
 
 def test_mesh_and_missing_cuda_raise(monkeypatch):
+    """A CPU mesh segments like the single device (tests/test_torch_mesh.py
+    holds it to the JAX package's mesh); a CUDA device or a mesh of CUDA
+    devices on a host without CUDA raises, nothing falls back."""
     feats = _features_with_sections()
     cfg = SegmentationConfig(normalize=False, corr_len=20 * STEP).build()
     pcfg = to_port(cfg)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        PS.segment_features(feats, None, STEP, pcfg, mesh=object(),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        PS.segment_features_batch([feats], None, STEP, pcfg, mesh=object(),
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        PW.batched_novelty_traces(np.zeros((1, 14, 64), np.float32), 4, 0.5,
-                                  mesh=object(), device="cpu")
+    mesh = PW.make_files_mesh(["cpu"] * 4)
+    want = PS.segment_features(feats, None, STEP, pcfg, device="cpu")
+    _same_breaks(PS.segment_features(feats, None, STEP, pcfg, mesh=mesh),
+                 want, 2e-5)
+    _same_breaks(PS.segment_features_batch([feats], None, STEP, pcfg,
+                                           mesh=mesh)[0], want, 2e-5)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PS.segment_features(feats, None, STEP, pcfg, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PW.make_files_mesh(["cuda:0"] * 2)

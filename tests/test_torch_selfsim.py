@@ -517,3 +517,51 @@ def test_cuda_without_a_card_raises(monkeypatch):
     x = _x(1, 5, 300)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PS.self_similarity_matrix(x, x, 10, 1, 0.5, device="cuda")
+
+
+@pytest.mark.parametrize("level", [0.0, 0.3, 0.7123])
+def test_silent_windows_give_the_mirrors_nan(level):
+    """``-x`` through a digital silence longer than the window: a pair of
+    windows inside it has one constant loudness over both windows, so its
+    temporal ``correlateHalf`` is 0/0 — NaN in the f64 mirror.  The port
+    finds such pairs exactly (the rounding of the sums decides whether the
+    arithmetic gives NaN, ±inf or noise; the JAX package gives what its
+    f32 sums give, −inf here) and writes NaN; every other pair holds the
+    mirror and the JAX package.  The device pixel stages map the NaN as
+    the host quantization does."""
+    from test_torch_segmentation import _with_silence
+
+    feats = _with_silence(5, 800, 400, 520)
+    feats[0, 400:520] = level
+    xs = PK.shift_per_group(feats)[0]
+    h = 20
+    starts = np.array([300, 405, 420, 450, 480, 500, 350, 470], np.int64)
+    win = PK.extract_windows(torch.from_numpy(xs), torch.from_numpy(starts), h)
+    st = PK.window_stats(win)
+    got = PK.gram_similarity_block(win, win, st, st, 0.5).numpy()
+    jw = jnp.asarray(win.numpy())
+    want = np.asarray(JK.gram_similarity_block(
+        jw, jw, JK.window_stats(jw), JK.window_stats(jw), jnp.float32(0.5)))
+    c = xs.shape[0]
+    ref = np.empty_like(got)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        for a, i in enumerate(starts):
+            for b, j in enumerate(starts):
+                w = np.concatenate([xs[:, i:i + h], xs[:, j:j + h]], axis=1)
+                ref[a, b] = (np.float32(M.correlate_half(1, h, w, 0, 0))
+                             * np.float32(0.5)
+                             + np.float32(M.correlate_half(c - 1, h, w, 0, 1))
+                             * np.float32(0.5))
+    inside = (starts >= 400) & (starts + h <= 520)
+    pair = inside[:, None] & inside[None, :]
+    np.testing.assert_array_equal(np.isnan(ref), pair)
+    np.testing.assert_array_equal(np.isnan(got), pair)
+    np.testing.assert_allclose(got[~pair], ref[~pair], atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got[~pair], want[~pair], atol=2e-5, rtol=0)
+    for colors, inv in (("psycho", False), ("gray", True)):
+        pix = PS._device_pix(colors, 1.0, 1.0, inv)
+        vals = PS._apply_pix_stages(torch.from_numpy(got), pix).numpy()
+        vals = vals.astype(np.uint8 if pix[2] else np.uint16)
+        np.testing.assert_array_equal(
+            PS._pix_to_rgb(vals, pix[2]),
+            PS._colorize(got, colors, 1.0, 1.0, inv))
