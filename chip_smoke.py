@@ -7,17 +7,23 @@ Run from the repository root on a machine with an NVIDIA Hopper card.  It
 drives the README quick start through the port (``strugatzki_tpu_torch``):
 
 1. device: the card's name and power limit, and the full-f32 matmul settings;
-2. build: ``csrc/prep.cu`` (both prep kernels) with nvcc for sm_90a;
-3. kernel: both prep kernels, the one-pass cluster kernel (``prep``) and the
-   two-pass kernel for long files (``prep_long``), against their plain
-   PyTorch version on the card: at a ``-c`` chunk ``[32, 14, 11925]`` (an odd
-   ``T``), the staging slab ``[2048, 14, 10752]``, ragged batches with
-   zero-length files and degenerate norm rows, another odd ``T``, tiny
-   shapes, and files too long for a cluster (two-pass only; a forced
-   one-pass launch must raise).  Two one-pass runs must give the same bits.
-   Each kernel is timed with the L2 warm and cold (inputs rotated through
-   more than the 50 MB L2) beside its bound, the one-pass kernel also at
-   each cluster size;
+2. build: ``csrc/prep.cu`` (the prep kernel ``prep_long``) with nvcc for
+   sm_90a;
+3. kernel: ``prep_long``, one persistent launch over a queue of row tiles,
+   against its plain PyTorch version on the card, compared there: at a
+   ``-c`` chunk ``[32, 14, 11925]`` (an odd ``T``; once more with NaN and
+   inf in its padded tail), the staging slab ``[2048, 14, 10752]``, ragged
+   batches with zero-length files and degenerate norm rows, another odd
+   ``T``, tiny shapes, 7.7-minute files (also with NaN in the padded tail),
+   a song library's slab ``[2048, 14, 36352]`` (2-6 minute songs and one
+   of 7 minutes), a ``-c`` chunk holding an hour-long broadcast ``[32, 14,
+   338990]``, and eight broadcasts of 1-2 hours ``[8, 14, 662092]``, whose
+   tiles outnumber the CTAs the card holds at once, so each valid frame is
+   read a second time (also with NaN in the padded tail).  Two runs must
+   give the same bits.  It is timed at each of these main-path shapes with
+   the L2 warm and cold (inputs rotated through more than the 50 MB L2)
+   beside its bound (the valid frames read once, every frame written once)
+   and the plain version's time;
 4. slice: 20 PCM16 files of 120 s plus a query, written from the seed;
    ``-f`` over the folder, ``--stats``, and a punch-in/punch-out search
    (``FeatureCorrelation``, temporal weight 0.5, 12-20 s, top 10) on CUDA.
@@ -30,8 +36,11 @@ drives the README quick start through the port (``strugatzki_tpu_torch``):
    on CUDA against the same database on the CPU (``query``,
    ``query_punch``, mixed-length ``query_batch``, ``query_punch_batch``,
    the exact re-rank, and the device re-rank against the host f64 oracle);
-   the same set plus one 40,000-frame recording, which the two-pass kernel
-   stages, against the CPU; then the deployment
+   the same set plus one 40,000-frame recording against the CPU; a song
+   library of 2,048 songs of 2-6 minutes and a 7-minute track with a
+   planted 10 s punch-in, staged with the defaults in two ``prep_long``
+   launches (its staging wall and their device time), the planted match
+   first in one ``query``; then the deployment
    README.md's north star names: 10,000 two-minute files staged with the
    spectra cache, a 10 s punch-in and a 5 s punch-out planted in one file,
    which must rank first in ``query`` and ``query_punch`` (12-20 s) with
@@ -88,15 +97,15 @@ drives the README quick start through the port (``strugatzki_tpu_torch``):
    inside it and the CPU curve elsewhere, and prep launches that leave
    PyTorch's current device as it was.
 
-Every phase that drives a path of the port sets the prep kernels' counters
-to 0 just before and reads them just after: the slice, the database and the
-mesh must launch the one-pass kernel (the database's long-file step the
-two-pass one) and never the plain version; the analyses (``-s``, ``-x``,
-``-y``) prepare on the host and must not reach the plain version.
+Every phase that drives a path of the port sets the prep counters to 0
+just before and reads them just after: the slice, the database and the
+mesh must launch ``prep_long`` and never the plain version; the analyses
+(``-s``, ``-x``, ``-y``) prepare on the host and must not reach the plain
+version.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit from nvidia-smi, and the
-one before that the kernels' launch counts (summed over the paths driven)
+one before that the kernel's launch count (summed over the paths driven)
 and times as JSON.  Any failed check raises: the script then exits non-zero
 and prints no result line.
 Without CUDA, or without the package beside it, it exits non-zero at once.
@@ -197,6 +206,26 @@ def _features(rng, B, C, T, lens):
     return x
 
 
+def _card_features(g, B, C, T, lens):
+    """:func:`_features` made on the card from the generator ``g`` (a host
+    copy of a slab would take seconds), with its per-row norm of the valid
+    frames: ``(x, norm, lens)`` as CUDA tensors."""
+    import torch
+
+    ln = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+    x = torch.empty((B, C, T), device="cuda")
+    x[:, 0].uniform_(0.0, 0.6, generator=g)
+    x[:, 1:].normal_(0.5, 0.1, generator=g)
+    tail = torch.arange(T, device="cuda")[None, :] >= ln[:, None]
+    x.masked_fill_(tail[:, None, :], 0.0)
+    inf = torch.tensor(float("inf"), device="cuda")
+    norm = torch.stack([
+        torch.stack([torch.where(tail, inf, x[:, c]).amin(),
+                     torch.where(tail, -inf, x[:, c]).amax()])
+        for c in range(C)])
+    return x, norm, ln
+
+
 def _norm_of(x, lens):
     rows = np.concatenate([x[b, :, :n] for b, n in enumerate(lens) if n],
                           axis=1)
@@ -204,22 +233,28 @@ def _norm_of(x, lens):
 
 
 def _close(a, b, rtol=1e-5):
-    """Elementwise: equal (NaN to NaN, inf to the same inf) or, where
-    finite, within ``rtol`` (the two sum the shifts in another order)."""
-    a, b = np.asarray(a), np.asarray(b)
-    with np.errstate(invalid="ignore"):
-        return (a == b) | (np.isnan(a) & np.isnan(b)) | (
-            np.isfinite(b) & (np.abs(a - b) <= rtol * np.abs(b)))
+    """Elementwise on the card: equal (NaN to NaN, inf to the same inf) or,
+    where finite, within ``rtol`` (the two sum the shifts in another
+    order)."""
+    return (a == b) | (a.isnan() & b.isnan()) | (
+        b.isfinite() & ((a - b).abs() <= rtol * b.abs()))
+
+
+def _bits_equal(a, b):
+    return (a == b) | (a.isnan() & b.isnan())
 
 
 #: the card's memory rate (H100 SXM, HBM3; NVIDIA's data sheet), for bounds
 HBM_BYTES_PER_S = 3.35e12
-VARIANTS = {"prep": "one_pass", "prep_long": "two_pass"}
 
 
-def compare_prep(feats, norm, lens, nt, variant):
-    """One kernel variant and the plain version on the card; returns the
-    max |error| over finite values after checking every stated tolerance."""
+def compare_prep(feats, norm, lens, nt):
+    """The kernel and the plain version on the card, compared there; returns
+    the max |error| over finite values after checking every stated
+    tolerance: NaN and inf where the plain version has them, finite values
+    within 1e-6, temporal shifts within rtol 1e-5, every frame at or past a
+    file's length exactly -shift (the spectral tail one constant, within
+    1e-5 of the plain version's)."""
     import torch
 
     from strugatzki_tpu_torch.kernels import prep
@@ -228,47 +263,47 @@ def compare_prep(feats, norm, lens, nt, variant):
     f = torch.as_tensor(feats, device=dev)
     n = torch.as_tensor(norm, device=dev)
     ln = torch.as_tensor(lens, dtype=torch.int32, device=dev)
-    out_k, sh_k = prep.prepare_database_cuda(f, n, ln, nt, variant=variant)
+    out_k, sh_k = prep.prepare_database_cuda(f, n, ln, nt)
     out_r, sh_r = prep.prepare_database_reference(f, n, ln, nt)
-    torch.cuda.synchronize()
-    out_k, sh_k = out_k.cpu().numpy(), sh_k.cpu().numpy()
-    out_r, sh_r = out_r.cpu().numpy(), sh_r.cpu().numpy()
-
-    require((np.isnan(out_k) == np.isnan(out_r)).all(),
-            f"{variant}: NaN positions")
-    require((np.isposinf(out_k) == np.isposinf(out_r)).all()
-            and (np.isneginf(out_k) == np.isneginf(out_r)).all(),
-            f"{variant}: inf positions")
-    fin = np.isfinite(out_r)
-    err = float(np.abs(out_k[fin] - out_r[fin]).max()) if fin.any() else 0.0
-    require(err <= 1e-6,
-            f"{variant}: finite values differ by {err:.3e} > 1e-6")
-    require(_close(sh_k, sh_r).all(),
-            f"{variant}: temporal shifts differ beyond rtol 1e-5")
-    for b, ln_b in enumerate(lens):
-        tail = out_k[b, :, ln_b:]
-        if tail.shape[1] == 0:
-            continue
-        require(np.array_equal(tail[:nt], np.full_like(tail[:nt], -sh_k[b]),
-                               equal_nan=True),
-                f"{variant}: temporal tail of file {b}")
-        s = tail[nt:]
-        if s.size == 0:
-            continue
-        require(np.array_equal(s, np.full_like(s, s[0, 0]), equal_nan=True),
-                f"{variant}: spectral tail of file {b} is not one constant")
-        require(_close(s[0, 0], out_r[b, nt, ln_b]),
-                f"{variant}: spectral shift of file {b}")
+    for cls in (torch.isnan, torch.isposinf, torch.isneginf):
+        require(torch.equal(cls(out_k), cls(out_r)),
+                f"prep_long: {cls.__name__} positions")
+    fin = out_r.isfinite()
+    err = float(torch.where(fin, (out_k - out_r).abs(), 0.0).max())
+    require(err <= 1e-6, f"prep_long: finite values differ by {err:.3e} > 1e-6")
+    require(bool(_close(sh_k, sh_r).all()),
+            "prep_long: temporal shifts differ beyond rtol 1e-5")
+    B, C, T = f.shape
+    tail = torch.arange(T, device=dev)[None, None, :] >= ln[:, None, None]
+    require(bool((_bits_equal(out_k[:, :nt], -sh_k[:, None, None])
+                  | ~tail).all()), "prep_long: a temporal tail is not -shift")
+    if nt < C:
+        at = ln.clamp(0, T - 1).long()[:, None, None]
+        first = out_k[:, nt:nt + 1].gather(2, at)        # [B, 1, 1]
+        require(bool((_bits_equal(out_k[:, nt:], first) | ~tail).all()),
+                "prep_long: a spectral tail is not one constant")
+        has = ln < T
+        require(bool(_close(first[has], out_r[:, nt:nt + 1].gather(
+            2, at)[has]).all()), "prep_long: spectral tail shifts")
+    del out_k, out_r, fin, tail
     return err
 
 
-def prep_bound_ms(B: int, C: int, T: int) -> float:
-    """The least time of one prep call on the card: its bytes (features read
-    once, prepared features written once, the norm, the lengths and the
-    temporal shifts) over the memory rate; its few operations an element
-    bound it far less."""
-    moved = 2 * B * C * T * 4 + C * 2 * 4 + B * 4 + B * 4
+def prep_bound_ms(B: int, C: int, T: int, valid: int) -> float:
+    """The least time of one prep call on the card: the bytes it must move
+    over the memory rate.  The ``valid`` frames (the sum over files of
+    ``min(len, T)``) of every row are read once, since nothing past a
+    file's length reaches the result; all of the prepared ``[B, C, T]`` is
+    written once; and the norm, the lengths and the temporal shifts.  Its
+    few operations an element bound it far less."""
+    moved = C * valid * 4 + B * C * T * 4 + C * 2 * 4 + B * 4 + B * 4
     return moved / HBM_BYTES_PER_S * 1e3
+
+
+def _valid(lens, T: int) -> int:
+    import torch
+
+    return int(torch.as_tensor(lens).clamp(0, T).sum())
 
 
 def _l2_rotation(x, copies_bytes: int = 128 << 20):
@@ -278,93 +313,71 @@ def _l2_rotation(x, copies_bytes: int = 128 << 20):
     return [x] + [x.clone() for _ in range(n - 1)]
 
 
-def time_prep(label: str, x, norm, lens, variants, card: str, iters: int,
+def time_prep(label: str, x, norm, lens, card: str, iters: int,
               plain_iters: int):
     """Warm (the same input every call) and cold (inputs rotated through
-    more than the L2) device times of each variant and of the plain version
-    at one shape, in turns; prints them beside the bound.  Returns
-    ``{kernel: (warm ms, cold ms)}`` and the plain version's ms."""
+    more than the L2) device times of the kernel, twice each, between two
+    timings of the plain version at one shape; prints them beside the
+    bound and the plan.  Returns (warm ms, cold ms, plain ms, bound ms)."""
     from strugatzki_tpu_torch.kernels import prep
 
     B, C, T = x.shape
     bufs = _l2_rotation(x)
-    bound = prep_bound_ms(B, C, T)
+    bound = prep_bound_ms(B, C, T, _valid(lens.cpu(), T))
+    plan = prep.long_plan(B, C, T, prep.long_ctas(min(prep.LONG_TILE, T), 0))
 
-    def run(variant, cold):
+    def run(kernel, cold):
         it = itertools.count()
 
         def fn():
             xi = bufs[next(it) % len(bufs)] if cold else x
-            if variant is None:
-                prep.prepare_database_reference(xi, norm, lens, 1)
+            if kernel:
+                prep.prepare_database_cuda(xi, norm, lens, 1)
             else:
-                prep.prepare_database_cuda(xi, norm, lens, 1, variant=variant)
-        return cuda_ms(fn, plain_iters if variant is None else iters)
+                prep.prepare_database_reference(xi, norm, lens, 1)
+        return cuda_ms(fn, iters if kernel else plain_iters)
 
-    names = [k for k in VARIANTS if VARIANTS[k] in variants]
-    order = names + names[::-1]
-    times = {k: {"warm": [], "cold": []} for k in names}
-    plain = [run(None, False)]
-    for cold in (False, True):
-        for k in order:
-            times[k]["cold" if cold else "warm"].append(
-                run(VARIANTS[k], cold))
-    plain.append(run(None, False))
-    plain_ms = sum(plain) / 2
-    out = {}
-    for k in names:
-        w = sum(times[k]["warm"]) / 2
-        c = sum(times[k]["cold"]) / 2
-        out[k] = (w, c)
-        print(f"kernel: {label} [{B}, {C}, {T}] {k} ({VARIANTS[k]}): warm "
-              f"{w:.4f} ms, cold {c:.4f} ms (runs warm "
-              f"{', '.join(f'{t:.4f}' for t in times[k]['warm'])}, cold "
-              f"{', '.join(f'{t:.4f}' for t in times[k]['cold'])}; "
-              f"{len(bufs)} rotated inputs of {x.numel() * 4 / 1e6:.1f} MB); "
-              f"bound {bound:.4f} ms, share {bound / c:.1%} cold, "
-              f"{bound / w:.1%} warm; on {card}")
-    print(f"kernel: {label} [{B}, {C}, {T}] plain version {plain_ms:.4f} ms "
-          f"(runs {', '.join(f'{t:.4f}' for t in plain)}) on {card}")
+    plain = [run(False, False)]
+    warm = [run(True, False), run(True, False)]
+    cold = [run(True, True), run(True, True)]
+    plain.append(run(False, False))
+    w, c, plain_ms = sum(warm) / 2, sum(cold) / 2, sum(plain) / 2
+    print(f"kernel: {label} [{B}, {C}, {T}] prep_long ({plan.tiles_per_row} "
+          f"tiles a row of {plan.tile}, grid {plan.grid}, "
+          f"{'held' if plan.resident else 're-read'}): warm {w:.4f} ms, "
+          f"cold {c:.4f} ms (runs warm {warm[0]:.4f}, {warm[1]:.4f}, cold "
+          f"{cold[0]:.4f}, {cold[1]:.4f}; {len(bufs)} rotated inputs of "
+          f"{x.numel() * 4 / 1e6:.1f} MB); bound {bound:.4f} ms, share "
+          f"{bound / c:.1%} cold, {bound / w:.1%} warm; plain version "
+          f"{plain_ms:.4f} ms (runs {plain[0]:.4f}, {plain[1]:.4f}); on "
+          f"{card}")
     del bufs
-    return out, plain_ms
+    return w, c, plain_ms, bound
 
 
-def cluster_sweep(label: str, x, norm, lens, card: str) -> None:
-    """The one-pass kernel's warm and cold time at each cluster size that
-    fits, beside how many such clusters the card holds at once."""
-    import torch
+#: the song library (2-6 minute songs, one 7-minute track), the hour-long
+#: broadcast of a -c chunk and a folder of 1-2 hour broadcasts, in feature
+#: frames at hop 512
+SONG_FRAMES = (10_335, 31_007)
+SEVEN_MINUTES = 36_175
+HOUR_FRAMES = 310_078
+TWO_HOURS = 620_156
+BROADCASTS = 8
 
-    from strugatzki_tpu_torch.kernels import prep
 
-    B, C, T = x.shape
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    bufs = _l2_rotation(x)
-    parts = []
-    for nc in (4, 8, 16):
-        if prep.one_pass_smem(C, T, nc) > prep._MAX_DYN_SMEM:
-            continue
-        held = prep.one_pass_clusters(C, T, nc)
-        it = itertools.count()
-
-        def fn(cold):
-            xi = bufs[next(it) % len(bufs)] if cold else x
-            prep.prepare_database_cuda(xi, norm, lens, 1, variant="one_pass",
-                                       cluster=nc)
-        w, c = cuda_ms(lambda: fn(False), 20), cuda_ms(lambda: fn(True), 20)
-        parts.append(f"{nc} x {prep.one_pass_smem(C, T, nc) / 1024:.1f} KiB: "
-                     f"{held} clusters at once, warm {w:.4f} ms, cold "
-                     f"{c:.4f} ms")
-    print(f"kernel: {label} [{B}, {C}, {T}] one-pass cluster sizes "
-          f"(rule: {prep.one_pass_cluster(B, C, T, sms)}): "
-          f"{'; '.join(parts)} on {card}")
-    del bufs
+def _song_lens(rng, n: int, longest: int, frames=SONG_FRAMES):
+    """``n`` lengths uniform over ``frames`` (2-6 minutes), the first
+    ``longest``."""
+    lens = rng.integers(frames[0], frames[1] + 1, n)
+    lens[0] = longest
+    return [int(v) for v in lens]
 
 
 def kernel_phase(seed: int, card: str):
-    """Both prep variants against the plain version at every shape the
-    paths give them and at the edge cases, the one-pass kernel's
-    determinism, and their times.  Returns ``{kernel: {"err", "ms",
-    "plain_ms", "bound_ms", "shape"}}`` at each kernel's main-path shape."""
+    """The kernel against the plain version at every shape the paths give
+    it and at the edge cases, its determinism, and its times.  Returns
+    ``{"prep_long": {"err", "ms", "plain_ms", "bound_ms", "shape"}}`` at its
+    main-path shape, the staging slab of the serving deployment."""
     import torch
 
     from strugatzki_tpu_torch.analysis.correlation import CHUNK_SIZE, _bucket
@@ -373,25 +386,27 @@ def kernel_phase(seed: int, card: str):
     from strugatzki_tpu_torch.parallel.database import _QUERY_CHUNK
 
     rng = np.random.default_rng(seed)
-    errs = {"prep": 0.0, "prep_long": 0.0}
+    errs = [0.0]
 
-    def both(label, f, nrm, lens, nt, variants=("one_pass", "two_pass")):
-        got = []
-        for k, v in VARIANTS.items():
-            if v in variants:
-                e = compare_prep(f, nrm, lens, nt, v)
-                errs[k] = max(errs[k], e)
-                got.append(f"{k} {e:.3e}")
+    def check(label, f, nrm, lens, nt):
+        e = compare_prep(f, nrm, lens, nt)
+        errs[0] = max(errs[0], e)
         print(f"kernel: {label} [{', '.join(map(str, f.shape))}], "
-              f"num_temporal {nt}: max |err| {', '.join(got)} (atol 1e-6, "
-              f"shifts rtol 1e-5, tails exactly -shift)")
+              f"num_temporal {nt}: max |err| {e:.3e} (atol 1e-6, shifts "
+              f"rtol 1e-5, tails exactly -shift)")
 
     frames = num_output_frames(SECONDS * SR, STEP)
     B, C, T = CHUNK_SIZE, 14, _bucket(frames)
     lens = [frames] * DB_FILES + [0] * (B - DB_FILES)
     feats = _features(rng, B, C, T, lens)
     norm = _norm_of(feats, lens)
-    both("the -c chunk", feats, norm, lens, 1)
+    check("the -c chunk", feats, norm, lens, 1)
+    dirty = feats.copy()
+    for b, n in enumerate(lens):
+        dirty[b, :, n:] = rng.choice(np.float32([np.nan, np.inf, -np.inf]),
+                                     (C, T - n))
+    check("the -c chunk, NaN and inf in the padded tail", dirty, norm, lens,
+          1)
 
     lens_r = [3000, 0, 1, 1023, 1024, 2999, 1777]
     for name, row, nt in (("spectral", 5, 1), ("temporal", 0, 1),
@@ -400,102 +415,104 @@ def kernel_phase(seed: int, card: str):
         nrm = _norm_of(f, lens_r)
         nrm[row, 1] = nrm[row, 0]
         f[0, row, :7] = nrm[row, 0]          # 0/0 as well as x/0
-        both(f"ragged {lens_r}, degenerate {name} norm row", f, nrm, lens_r,
-             nt)
+        check(f"ragged {lens_r}, degenerate {name} norm row", f, nrm, lens_r,
+              nt)
     lens_o = [4097, 0, 4096, 1, 333, 4095, 2048, 17, 4000]
     f = _features(rng, len(lens_o), C, 4097, lens_o)
     nrm = _norm_of(f, lens_o)
     nrm[9, 1] = nrm[9, 0]
-    both("odd T, ragged, degenerate spectral row", f, nrm, lens_o, 1)
+    check("odd T, ragged, degenerate spectral row", f, nrm, lens_o, 1)
     for shape, nt in (((5, 14, 3), 1), ((3, 1, 4099), 1), ((6, 5, 7), 2)):
         lens_t = [shape[2], 0, 1] + [shape[2] - 1] * (shape[0] - 3)
         f = _features(rng, shape[0], shape[1], shape[2], lens_t)
-        both("tiny", f, _norm_of(f, lens_t), lens_t, nt)
+        check("tiny", f, _norm_of(f, lens_t), lens_t, nt)
     L = LONG_FRAMES
     TL = -(-L // 512) * 512
-    lens_l = [L, TL, 0, 31234]
+    lens_l = [L, TL, 0, 31234, TL + 9]
     f = _features(rng, len(lens_l), C, TL, lens_l)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    require(prep.one_pass_cluster(LONG_DB, C, TL, sms) is None,
-            f"[{C}, {TL}] files fit a cluster")
-    both("long files", f, _norm_of(f, lens_l), lens_l, 1, ("two_pass",))
-    try:
-        prep.prepare_database_cuda(torch.as_tensor(f, device="cuda"),
-                                   torch.as_tensor(_norm_of(f, lens_l),
-                                                   device="cuda"),
-                                   torch.as_tensor(lens_l, dtype=torch.int32,
-                                                   device="cuda"),
-                                   variant="one_pass")
-        require(False, "a forced one-pass launch on long files did not raise")
-    except ValueError:
-        pass
+    check("long files", f, _norm_of(f, lens_l), lens_l, 1)
+    for b, n in enumerate(lens_l):
+        f[b, :, n:] = np.nan
+    check("long files, NaN in the padded tail", f, _norm_of(f, lens_l[:2]),
+          lens_l, 1)
 
-    # the one-pass kernel gives the same bits on every run
     dev = torch.device("cuda")
-    ft = torch.as_tensor(feats, device=dev)
-    nt_ = torch.as_tensor(norm, device=dev)
-    lt = torch.as_tensor(lens, dtype=torch.int32, device=dev)
     g = torch.Generator(device="cuda").manual_seed(seed)
+    # the staging slab of two-minute files
     xs = torch.rand((_QUERY_CHUNK, C, 10752), device="cuda", generator=g)
     ns = torch.tensor([[0.0, 1.0]] * C, device="cuda")
     ls = torch.full((_QUERY_CHUNK,), SCALE_FRAMES, dtype=torch.int32,
                     device="cuda")
-    for x_, n_, l_ in ((ft, nt_, lt), (xs, ns, ls)):
-        a = prep.prepare_database_cuda(x_, n_, l_, 1, variant="one_pass")
-        b = prep.prepare_database_cuda(x_, n_, l_, 1, variant="one_pass")
+    check("the staging slab", xs, ns, ls, 1)
+    # a song library's slab with a 7-minute track, a -c chunk with an
+    # hour-long broadcast, and a folder of 1-2 hour broadcasts, whose files'
+    # tiles outnumber the CTAs the card holds at once (the re-read plan)
+    TS = -(-SEVEN_MINUTES // 512) * 512
+    song = _card_features(g, _QUERY_CHUNK, C, TS,
+                          _song_lens(rng, _QUERY_CHUNK, SEVEN_MINUTES))
+    check("the song-library slab", *song, 1)
+    TH = _bucket(HOUR_FRAMES)
+    hour = _card_features(g, CHUNK_SIZE, C, TH,
+                          _song_lens(rng, CHUNK_SIZE, HOUR_FRAMES))
+    check("the hour-long -c chunk", *hour, 1)
+    T2 = _bucket(TWO_HOURS)
+    two = _card_features(g, BROADCASTS, C, T2,
+                         _song_lens(rng, BROADCASTS, TWO_HOURS,
+                                    (TWO_HOURS // 2, TWO_HOURS)))
+    plan = prep.long_plan(BROADCASTS, C, T2,
+                          prep.long_ctas(min(prep.LONG_TILE, T2), 0))
+    require(not plan.resident, f"[{C}, {T2}] files are held: {plan}")
+    check(f"the two-hour broadcasts (re-read plan: {plan.tiles_per_row} "
+          f"tiles a row, grid {plan.grid})", *two, 1)
+    x2, n2, l2 = two
+    pad = torch.arange(T2, device=dev)[None, :] >= l2[:, None]
+    x2n = x2.masked_fill(pad[:, None, :], float("nan"))
+    check("the two-hour broadcasts, NaN in the padded tail", x2n, n2, l2, 1)
+    del x2n, pad
+
+    # the same bits on every run
+    ft = torch.as_tensor(feats, device=dev)
+    nt_ = torch.as_tensor(norm, device=dev)
+    lt = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    runs = [(ft, nt_, lt), (xs, ns, ls), song, hour, two]
+    for x_, n_, l_ in runs:
+        a = prep.prepare_database_cuda(x_, n_, l_, 1)
+        b = prep.prepare_database_cuda(x_, n_, l_, 1)
         require(all(torch.equal(p.view(torch.int32), q.view(torch.int32))
                     for p, q in zip(a, b)),
-                f"one-pass runs differ at {tuple(x_.shape)}")
+                f"prep_long runs differ at {tuple(x_.shape)}")
         del a, b
-    print("kernel: two one-pass runs give bit-equal outputs and shifts at "
-          f"{list(ft.shape)} and {list(xs.shape)}")
-    # the slab on the card alone: a host copy of it would take minutes
-    ref_s, rsh_s = prep.prepare_database_reference(xs, ns, ls, 1)
-    n = SCALE_FRAMES
-    for k, v in VARIANTS.items():
-        out_s, sh_s = prep.prepare_database_cuda(xs, ns, ls, 1, variant=v)
-        e_slab = float((out_s - ref_s).abs().max())
-        require(e_slab <= 1e-6, f"{v} at the staging slab differs by "
-                f"{e_slab:.3e}")
-        e_sh = float(((sh_s - rsh_s).abs() / rsh_s.abs()).max())
-        require(e_sh <= 1e-5, f"{v}: staging slab shifts differ by "
-                f"{e_sh:.3e}")
-        require(bool((out_s[:, :1, n:] == -sh_s[:, None, None]).all())
-                and bool((out_s[:, 1:, n:] == out_s[:, 1:2, n:n + 1]).all()),
-                f"{v}: staging slab tails are not -shift")
-        del out_s, sh_s
-        print(f"kernel: the staging slab {list(xs.shape)}: {k} max |err| "
-              f"{e_slab:.3e} (atol 1e-6), shifts max rel err {e_sh:.3e} "
-              f"(1e-5), tails exactly -shift")
-        errs[k] = max(errs[k], e_slab)
-    del ref_s, rsh_s
+    print("kernel: two runs give bit-equal outputs and shifts at "
+          f"{', '.join(str(list(r[0].shape)) for r in runs)}")
 
-    cluster_sweep("the -c chunk", ft, nt_, lt, card)
-    cluster_sweep("the staging slab", xs, ns, ls, card)
-    both_v = ("one_pass", "two_pass")
-    time_prep("the -c chunk", ft, nt_, lt, both_v, card, 200, 50)
-    slab_t, slab_plain = time_prep("the staging slab", xs, ns, ls, both_v,
-                                   card, 20, 5)
+    time_prep("the -c chunk", ft, nt_, lt, card, 200, 50)
+    _, slab_ms, slab_plain, slab_bound = time_prep(
+        "the staging slab", xs, ns, ls, card, 20, 5)
     del xs
     xl = torch.as_tensor(_features(rng, LONG_DB, C, TL,
                                    [L] + [1500] * (LONG_DB - 1)), device=dev)
     nl = torch.as_tensor(_norm_of(xl.cpu().numpy(), [L]), device=dev)
     ll = torch.tensor([L] + [1500] * (LONG_DB - 1), dtype=torch.int32,
                       device=dev)
-    long_t, long_plain = time_prep("the long-file database", xl, nl, ll,
-                                   ("two_pass",), card, 50, 10)
+    time_prep("the long-file database", xl, nl, ll, card, 50, 10)
     del xl
+    time_prep("the hour-long -c chunk", *hour, card, 20, 3)
+    del hour
+    time_prep("the two-hour broadcasts", *two, card, 20, 3)
+    del two
+    time_prep("the song-library slab", *song, card, 10, 3)
+    vs = _valid(song[2].cpu(), TS)
+    full = prep_bound_ms(_QUERY_CHUNK, C, TS, _QUERY_CHUNK * TS)
+    print(f"kernel: bounds count the valid frames read and every frame "
+          f"written: at the song-library slab {prep_bound_ms(_QUERY_CHUNK, C, TS, vs):.4f} "
+          f"ms ({vs / (_QUERY_CHUNK * TS):.1%} of the frames valid); a read "
+          f"of every frame, as earlier bounds counted, would give "
+          f"{full:.4f} ms")
+    del song
     torch.cuda.empty_cache()
-    return {
-        "prep": {"err": errs["prep"], "ms": slab_t["prep"][1],
-                 "plain_ms": slab_plain,
-                 "bound_ms": prep_bound_ms(_QUERY_CHUNK, C, 10752),
-                 "shape": [_QUERY_CHUNK, C, 10752]},
-        "prep_long": {"err": errs["prep_long"], "ms": long_t["prep_long"][1],
-                      "plain_ms": long_plain,
-                      "bound_ms": prep_bound_ms(LONG_DB, C, TL),
-                      "shape": [LONG_DB, C, TL]},
-    }
+    return {"prep_long": {"err": errs[0], "ms": slab_ms,
+                          "plain_ms": slab_plain, "bound_ms": slab_bound,
+                          "shape": [_QUERY_CHUNK, C, 10752]}}
 
 
 # ---------------------------------------------------------------------------
@@ -696,31 +713,25 @@ BAND = (1034, 1723)             # full_to_feat(12 s), full_to_feat(20 s)
 PLANT_IN, PLANT_OUT = 2000, 3400
 Q_IN, Q_OUT = 1500, 4000        # the punches' frames in the query
 SIM_TOL, BOOST_RTOL, RERANK_TOL = 3e-5, 1e-4, 1e-5
-#: a recording too long for the one-pass kernel's cluster (~7.7 minutes;
-#: staged at T = 40,448, 2.3 MB a file) beside the 64-file set
+#: a recording of ~7.7 minutes (staged at T = 40,448, 2.3 MB a file, four
+#: tiles a row) beside the 64-file set
 LONG_FRAMES = 40_000
 LONG_DB = 65
 
 
-def counted(label: str, fn, phase: str = "database", need: str = "prep"):
+def counted(label: str, fn, phase: str = "database"):
     """Run ``fn`` with the prep counters set to 0 just before and read just
-    after; the path must have launched the kernel ``need`` (``prep``, the
-    one-pass kernel, or ``prep_long``, the two-pass one) and never the plain
+    after; the path must have launched ``prep_long`` and never the plain
     version.  Returns ``(fn's result, Counter of launches by kernel)``."""
     from strugatzki_tpu_torch.kernels import prep
 
-    prep.KERNEL_LAUNCHES = prep.ONE_PASS_LAUNCHES = 0
-    prep.TWO_PASS_LAUNCHES = prep.REFERENCE_CALLS = 0
+    prep.KERNEL_LAUNCHES = prep.REFERENCE_CALLS = 0
     out = fn()
-    launches = Counter(prep=prep.ONE_PASS_LAUNCHES,
-                       prep_long=prep.TWO_PASS_LAUNCHES)
+    launches = Counter(prep_long=prep.KERNEL_LAUNCHES)
     refs = prep.REFERENCE_CALLS
-    print(f"{phase}: {label}: prep kernel launches {launches['prep']} "
-          f"one-pass, {launches['prep_long']} two-pass, plain-version calls "
-          f"{refs}")
-    require(prep.KERNEL_LAUNCHES == sum(launches.values()),
-            "KERNEL_LAUNCHES is not the sum of the variants'")
-    require(launches[need] > 0, f"{label} never launched {need}")
+    print(f"{phase}: {label}: prep_long launches {launches['prep_long']}, "
+          f"plain-version calls {refs}")
+    require(launches["prep_long"] > 0, f"{label} never launched prep_long")
     require(refs == 0, f"{label} reached the plain version on CUDA")
     return out, launches
 
@@ -910,9 +921,9 @@ def compare_phase(seed: int) -> Counter:
 
 
 def long_file_compare(seed: int, entries, norm, t_in, t_out) -> Counter:
-    """The 64-file set plus one recording too long for a cluster (the
-    staging slab's T follows it, so the two-pass kernel prepares every file)
-    on CUDA against the CPU; the planted pair stays first."""
+    """The 64-file set plus one recording of ~7.7 minutes (the staging
+    slab's T follows it) on CUDA against the CPU; the planted pair stays
+    first."""
     from strugatzki_tpu_torch.parallel.database import FeatureDatabase
 
     rng = np.random.default_rng(seed + 2)
@@ -926,14 +937,85 @@ def long_file_compare(seed: int, entries, norm, t_in, t_out) -> Counter:
     cpu = run(FeatureDatabase(entries, norm, device="cpu"))
     got, launches = counted(
         f"64 files and one of {LONG_FRAMES} frames on CUDA",
-        lambda: run(FeatureDatabase(entries, norm, device="cuda")),
-        need="prep_long")
+        lambda: run(FeatureDatabase(entries, norm, device="cuda")))
     worst_s, worst_b = _same_results(got, cpu, ["query", "query_punch"],
                                      "long-file database ")
     _require_planted_pair(got[1], "long-file database ")
     print(f"database: 64 files and one of {LONG_FRAMES} frames CUDA vs CPU, "
           f"query, query_punch: sims max |err| {worst_s:.3e} ({SIM_TOL}), "
           f"boosts max rel err {worst_b:.3e} ({BOOST_RTOL})")
+    return launches
+
+
+#: the song library: 2,048 songs of 2-6 minutes and one 7-minute track at
+#: SONG_TARGET holding a 10 s punch-in at SONG_PLANT (in its third tile of
+#: a row)
+SONG_FILES = 2048
+SONG_TARGET, SONG_PLANT = 1500, 34_000
+
+
+def song_library(seed: int, card: str) -> Counter:
+    """A song library staged end to end with the defaults (no spectra
+    cache): the 7-minute track sets every slab's T to 36,352, and
+    prep_long prepares both slabs.  One query must rank the planted punch-in first.
+    Prints the staging wall and prep_long's device time in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from strugatzki_tpu_torch.analysis.correlation import InputTemplate
+    from strugatzki_tpu_torch.parallel.database import FeatureDatabase
+
+    rng = np.random.default_rng(seed + 6)
+    t0 = time.perf_counter()
+    lens = _song_lens(rng, SONG_FILES + 1, SEVEN_MINUTES)
+    lens[0], lens[SONG_TARGET] = lens[SONG_TARGET], lens[0]
+    entries = [(f"song{i:04d}.aif", rng.random((14, n), dtype=np.float32))
+               for i, n in enumerate(lens)]
+    query = rng.random((14, L_IN), dtype=np.float32)
+    entries[SONG_TARGET][1][:, SONG_PLANT:SONG_PLANT + L_IN] = query
+    norm = np.stack([np.zeros(14), np.ones(14)], 1).astype(np.float32)
+    t_in = InputTemplate.from_features(query, norm, 0, L_IN)
+    print(f"database: songs: {len(entries)} files of {min(lens)}-"
+          f"{max(lens)} frames ({sum(lens) * 14 * 4 / 1e9:.2f} GB valid) "
+          f"made in {time.perf_counter() - t0:.1f} s")
+
+    def stage_and_query():
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            db = FeatureDatabase(entries, norm, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        cuda = torch.autograd.DeviceType.CUDA
+        prep_ms = sum(getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0))
+                      for e in prof.key_averages()
+                      if e.device_type == cuda and "prep_long" in e.key) / 1e3
+        res, first, warm = _latency(lambda: db.query(t_in, k=4), warm=3)
+        print(f"database: songs: staged {len(entries)} files (T "
+              f"{db._xs.shape[2]}, {db._xs.numel() * 4 / 1e9:.2f} GB "
+              f"resident) in {wall:.3f} s under torch.profiler, prep_long "
+              f"{prep_ms:.4f} ms of device time in it; query first "
+              f"{first * 1e3:.3f} ms, warm median of 3 {warm * 1e3:.3f} ms "
+              f"on {card}")
+        del db
+        return res
+
+    res, launches = counted("song library", stage_and_query)
+    require(launches["prep_long"] == 2,
+            f"song library: {launches}, not two prep_long launches")
+    m = res.matches(L_IN, STEP, 1)[0]
+    require(m.file == entries[SONG_TARGET][0]
+            and int(res.frames[SONG_TARGET, 0]) == SONG_PLANT
+            and res.sims[SONG_TARGET, 0] > 0.999,
+            f"song library: top {m}, planted {entries[SONG_TARGET][0]} at "
+            f"{SONG_PLANT}")
+    print(f"database: songs: planted {m.file} first in query (frame "
+          f"{SONG_PLANT}, sim {res.sims[SONG_TARGET, 0]:.7f})")
+    del entries
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1138,6 +1220,7 @@ def database_phase(seed: int, card: str) -> Counter:
     topk_on_card()
     launches = canary_phase()
     launches += compare_phase(seed)
+    launches += song_library(seed, card)
     launches += scale_phase(seed, card)
     return launches
 
@@ -1775,8 +1858,7 @@ def analyses_phase(seed: int, card: str, dev: str = "cuda") -> None:
         os.makedirs(snd)
         os.makedirs(db)
         write_analysis_sounds(snd, seed)
-        prep.KERNEL_LAUNCHES = prep.ONE_PASS_LAUNCHES = 0
-        prep.TWO_PASS_LAUNCHES = prep.REFERENCE_CALLS = 0
+        prep.KERNEL_LAUNCHES = prep.REFERENCE_CALLS = 0
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             require(cli(["-f", "-d", db, "--device", dev, snd]) == 0,
@@ -1853,8 +1935,8 @@ def mesh_scale(seed: int, card: str, mesh) -> Counter:
     (db, res), launches = counted(f"{MESH_SHARDS}-shard scale database",
                                   stage_and_query, "mesh")
     per_shard = -(-(SCALE_FILES // MESH_SHARDS) // 2048)
-    require(launches["prep"] == MESH_SHARDS * per_shard,
-            f"{launches['prep']} prep launches, not {per_shard} a shard")
+    require(launches["prep_long"] == MESH_SHARDS * per_shard,
+            f"{launches['prep_long']} prep launches, not {per_shard} a shard")
     q, p = _require_planted(res, entries[target][0], target)
     worst_s = worst_b = 0.0
     for name, (got, _, _) in res.items():
@@ -1894,8 +1976,8 @@ def mesh_correlation(seed: int, card: str, mesh) -> Counter:
         finally:
             FeatureCorrelation.mesh = None
     chunks = -(-DB_FILES // (-(-CHUNK_SIZE // MESH_SHARDS) * MESH_SHARDS))
-    require(launches["prep"] == MESH_SHARDS * chunks,
-            f"{launches['prep']} prep launches for {chunks} chunk(s)")
+    require(launches["prep_long"] == MESH_SHARDS * chunks,
+            f"{launches['prep_long']} prep launches for {chunks} chunk(s)")
     require([(m.file, m.punch.start, m.punch.stop) for m in got]
             == [(m.file, m.punch.start, m.punch.stop) for m in want],
             "sharded -c matches differ from the unsharded search")
@@ -1904,7 +1986,7 @@ def mesh_correlation(seed: int, card: str, mesh) -> Counter:
     check_matches(got, target, start, stop)
     print(f"mesh: -c over {DB_FILES} files with {MESH_SHARDS} shards: "
           f"{len(got)} matches equal to the unsharded search's match for "
-          f"match (sims max |err| {err:.3e}); {launches['prep']} one-pass "
+          f"match (sims max |err| {err:.3e}); {launches['prep_long']} prep_long "
           f"launches = {MESH_SHARDS} shards x {chunks} chunk(s); "
           f"{t_c:.3f} s on {card}")
     return launches
@@ -2066,15 +2148,13 @@ def mesh_repairs(seed: int, card: str, db: str) -> None:
         torch.cuda.set_device((d + 1) % torch.cuda.device_count())
         current = torch.cuda.current_device()
         x = torch.rand((3, 14, 500), device=f"cuda:{d}")
-        for variant in ("one_pass", "two_pass"):
-            prep.prepare_database_cuda(
-                x, torch.tensor([[0.0, 1.0]] * 14, device=f"cuda:{d}"),
-                torch.full((3,), 400, dtype=torch.int32, device=f"cuda:{d}"),
-                variant=variant)
-            torch.cuda.synchronize(d)
-            require(torch.cuda.current_device() == current,
-                    f"a {variant} launch on cuda:{d} left cuda:"
-                    f"{torch.cuda.current_device()} current, not {current}")
+        prep.prepare_database_cuda(
+            x, torch.tensor([[0.0, 1.0]] * 14, device=f"cuda:{d}"),
+            torch.full((3,), 400, dtype=torch.int32, device=f"cuda:{d}"))
+        torch.cuda.synchronize(d)
+        require(torch.cuda.current_device() == current,
+                f"a prep_long launch on cuda:{d} left cuda:"
+                f"{torch.cuda.current_device()} current, not {current}")
         currents.append(current)
     torch.cuda.set_device(0)
     # with one card the launch device is the current one, so the guard in
@@ -2086,7 +2166,7 @@ def mesh_repairs(seed: int, card: str, db: str) -> None:
     print(f"mesh: repairs: {SILENT_LEN} s of silence at corrLen {CORR_LEN} "
           f"(half window {h}): NaN at exactly the {int(inside.sum())} "
           f"windows inside it on CUDA and the CPU, elsewhere CUDA vs CPU "
-          f"max |err| {err:.3e} ({NOVELTY_TOL}); one- and two-pass prep "
+          f"max |err| {err:.3e} ({NOVELTY_TOL}); prep_long "
           f"launches on each of {torch.cuda.device_count()} card(s) left "
           f"the current device as it was ({currents}; {restore})")
 
@@ -2160,7 +2240,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.load("prep")
     info = _build.build_info["prep"]
-    print(f"build: csrc/prep.cu (both prep variants) with nvcc "
+    print(f"build: csrc/prep.cu (prep_long) with nvcc "
           f"{' '.join(_build.NVCC_FLAGS)} in {info['seconds']:.2f} s "
           f"({time.perf_counter() - t0:.2f} s with loading)")
     for line in info["log"].splitlines():

@@ -8,75 +8,97 @@ rows ``< num_temporal``, spectral rows the rest) so downstream f32 window
 sums are cancellation-free, and the temporal shift kept for the loudness
 boost.  Frames at or past a file's length become ``−shift``.
 
-:func:`prepare_database` launches the kernel in ``csrc/prep.cu`` for CUDA
+:func:`prepare_database` launches the kernel of ``csrc/prep.cu`` for CUDA
 tensors and takes :func:`prepare_database_reference` for CPU tensors; a
 CUDA tensor never reaches the reference through it, and a build or launch
-failure raises.  The TPU kernel's VMEM cap and XLA fallback are gone: a
-file that fits a thread-block cluster's shared memory takes the one-pass
-kernel, and a longer one the two-pass kernel, which tiles T and takes any
-length (see :func:`prepare_database_cuda` for the rule).
+failure raises.  The TPU kernel's VMEM cap and XLA fallback are gone:
+one kernel, ``prep_long``, takes files of every length in one persistent
+launch over an ordered queue of row tiles (:func:`long_plan` builds its
+work plan, :func:`long_queue` its queue).
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 from functools import lru_cache
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..runtime.device import resolve
 
 __all__ = ["prepare_database", "prepare_database_cuda",
-           "prepare_database_reference"]
+           "prepare_database_reference", "long_plan", "long_queue"]
 
 # Read the counters as ``prep.KERNEL_LAUNCHES``: a ``from`` import copies
 # the int.
-#: launches of either CUDA kernel (one per :func:`prepare_database_cuda`
-#: call): ``ONE_PASS_LAUNCHES + TWO_PASS_LAUNCHES``
+#: launches of ``prep_long`` (one per :func:`prepare_database_cuda` call)
 KERNEL_LAUNCHES = 0
-#: launches of the one-pass cluster kernel (``prep_one_pass``)
-ONE_PASS_LAUNCHES = 0
-#: launches of the two-pass kernel (``prep_group_shifts`` + ``prep_apply``)
-TWO_PASS_LAUNCHES = 0
 #: calls of the plain PyTorch version
 REFERENCE_CALLS = 0
 
-#: CUDA grid limit on the file and channel axes (gridDim.y / gridDim.z)
-_MAX_GRID_YZ = 65535
-#: the one-pass kernel's cluster: as many CTAs as parts of at most
-#: ``CTA_BYTES`` of a file (three such CTAs share a SM), up to
-#: ``MAX_CLUSTER`` (the portable limit), and twice that, up to
-#: ``WIDE_CLUSTER`` (a non-portable size), where the launch is one wave
-CTA_BYTES = 80 * 1024
-MAX_CLUSTER = 8
-WIDE_CLUSTER = 16
-#: dynamic shared memory one CTA may take: the card's 227 KB a block, less
-#: the kernel's static shared memory
-_MAX_DYN_SMEM = 232448 - 1024
+#: frames of a row one ``prep_long`` tile holds at most: 48 KiB of shared
+#: memory, so four CTAs share a SM of an H100 (its 63 registers a thread
+#: allow no more)
+LONG_TILE = 12288
 
 
-def one_pass_smem(C: int, T: int, nc: int) -> int:
-    """Dynamic shared memory of one CTA of an ``nc``-CTA cluster over a
-    ``[C, T]`` file: its part plus the alignment slack of both ends, in
-    whole 16 bytes (``one_pass_smem`` in ``csrc/prep.cu``)."""
-    chunk = -(-C * T // nc)
-    return (chunk + 12 + 3) // 4 * 16
+class LongPlan(NamedTuple):
+    """The work plan of one ``prep_long`` launch (``csrc/prep.cu``)."""
+    tile: int            # frames of a row per tile (a row's last may be less)
+    tiles_per_row: int
+    resident: bool       # a file's tiles all fit the grid: x is read once
+    grid: int            # CTAs, all resident at once
 
 
-def one_pass_cluster(B: int, C: int, T: int, sms: int):
-    """The one-pass kernel's cluster size for ``B`` files of ``[C, T]`` on a
-    card of ``sms`` SMs, or None where a file does not fit ``MAX_CLUSTER``
-    CTAs' shared memory.  ``nc = min(8, ceil(C·T·4 / 80 KiB))``; where the
-    ``B·nc`` CTAs would not fill two per SM, each file is spread over
-    ``min(16, 2·nc)`` CTAs instead, so a small batch (a 32-file ``-c``
-    chunk) reaches more of the card's SMs."""
-    nc = min(MAX_CLUSTER, max(1, math.ceil(C * T * 4 / CTA_BYTES)))
-    if one_pass_smem(C, T, nc) > _MAX_DYN_SMEM:
-        return None
-    if B * nc <= 2 * sms:
-        nc = min(WIDE_CLUSTER, 2 * nc)
-    return nc
+def long_plan(B: int, C: int, T: int, ctas: int,
+              tile: int = LONG_TILE) -> LongPlan:
+    """The plan of ``prep_long`` over ``B`` files of ``[C, T]`` on a card
+    that holds ``ctas`` of its CTAs at once.  Each row is cut into
+    ``tiles_per_row`` tiles of at most ``tile`` frames.  The grid is the
+    resident CTAs, or fewer where there are fewer tiles.  Where a file's
+    ``C·tiles_per_row`` tiles fit the grid, each tile of valid frames is
+    held in shared memory from its read to its write; otherwise it is read
+    a second time for its write (:func:`long_queue` gives the queue)."""
+    per_row = -(-T // -(-T // tile))
+    tiles_per_row = -(-T // per_row)
+    grid = min(ctas, B * C * tiles_per_row)
+    return LongPlan(per_row, tiles_per_row, C * tiles_per_row <= grid, grid)
+
+
+#: the kinds of :func:`long_queue`, as ``SlotKind`` in ``csrc/prep.cu``:
+#: reduce a tile of valid frames, wait for the file's shifts and write it;
+#: reduce it only (the re-read plan); write a tile of padding alone as
+#: ``-shift``; read a tile of valid frames again and write it
+HOLD, REDUCE, TAIL, REREAD = range(4)
+
+
+def long_queue(plan: LongPlan, C: int, T: int, lens):
+    """``prep_long``'s queue for files of lengths ``lens``, every ticket as
+    the kernel decodes it (``long_slot`` in ``csrc/prep.cu``): int64 arrays
+    ``(kind, file, row, tile of the row)`` in ticket order.  ``prefix[b]``,
+    the reduce tiles of the files before ``b``, orders the queue: every
+    file's reduce tiles (file by file, row-major), then every file's tiles
+    of padding alone, then in the re-read plan the reduce tiles once more.
+    ``searchsorted`` is the kernel's binary search for the last file whose
+    range starts at or before the ticket."""
+    lens = np.asarray(lens, np.int64)
+    B, NT = len(lens), plan.tiles_per_row
+    nv = -(-np.clip(lens, 0, T) // plan.tile)
+    prefix = np.concatenate([[0], np.cumsum(C * nv)])
+    R, CN = int(prefix[-1]), C * NT
+    t = np.arange(B * CN + (0 if plan.resident else R))
+    tail = (t >= R) & (t < B * CN)
+    kind = np.where(t < R, HOLD if plan.resident else REDUCE,
+                    np.where(tail, TAIL, REREAD))
+    u = np.where(tail, t - R, np.where(t < R, t, t - B * CN))
+    tails = np.arange(B + 1) * CN - prefix
+    f = np.where(tail, np.searchsorted(tails, u, side="right"),
+                 np.searchsorted(prefix, u, side="right")) - 1
+    o = u - np.where(tail, tails[f], prefix[f])
+    per = np.where(tail, NT - nv[f], nv[f])
+    return kind, f, o // per, o % per + np.where(tail, nv[f], 0)
 
 
 def _identity_norm(C: int, device: torch.device) -> torch.Tensor:
@@ -118,14 +140,10 @@ def _prep_lib() -> ctypes.CDLL:
 
     lib = load("prep")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.prep_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.prep_launch.restype = i
-    lib.prep_one_pass_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                         p]
-    lib.prep_one_pass_launch.restype = i
-    lib.prep_one_pass_clusters.argtypes = [i, i, i, i,
-                                           ctypes.POINTER(ctypes.c_int)]
-    lib.prep_one_pass_clusters.restype = i
+    lib.prep_long_launch.argtypes = [p] * 8 + [i] * 9 + [p]
+    lib.prep_long_launch.restype = i
+    lib.prep_long_ctas.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.prep_long_ctas.restype = i
     lib.prep_error_string.argtypes = [i]
     lib.prep_error_string.restype = ctypes.c_char_p
     return lib
@@ -150,91 +168,63 @@ def _raise_on(lib, err: int, what: str) -> None:
                            + lib.prep_error_string(err).decode())
 
 
-def one_pass_clusters(C: int, T: int, nc: int, device=None) -> int:
-    """How many ``nc``-CTA clusters of the one-pass kernel over ``[C, T]``
-    files the card holds at once (``cudaOccupancyMaxActiveClusters``)."""
-    dev = torch.device("cuda") if device is None else torch.device(device)
+@lru_cache(maxsize=None)
+def long_ctas(tile: int, device: int) -> int:
+    """How many ``prep_long`` CTAs for tiles of ``tile`` frames card
+    ``device`` holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    times its SMs)."""
     lib = _prep_lib()
     n = ctypes.c_int(0)
-    _raise_on(lib, lib.prep_one_pass_clusters(
-        C, T, nc,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        ctypes.byref(n)),
-        "cudaOccupancyMaxActiveClusters")
+    _raise_on(lib, lib.prep_long_ctas(tile, device, ctypes.byref(n)),
+              "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
     return n.value
 
 
 def prepare_database_cuda(feats: torch.Tensor, norm: torch.Tensor,
-                          lens: torch.Tensor, num_temporal: int = 1,
-                          variant: str | None = None,
-                          cluster: int | None = None):
-    """Launch a kernel of ``csrc/prep.cu`` on the current stream.
+                          lens: torch.Tensor, num_temporal: int = 1):
+    """Launch ``prep_long`` of ``csrc/prep.cu`` on the current stream.
     ``feats`` ``[B, C, T]`` f32, ``norm`` ``[C, 2]`` f32 and ``lens`` ``[B]``
-    i32, all contiguous on one CUDA device; raises on anything else.
-
-    Which kernel runs is decided before the launch, from the shape and the
-    addresses alone: the one-pass cluster kernel when a file's ``[C, T]``
-    block fits the shared memory of 8 CTAs (each holds ``ceil(C·T / nc)``
-    elements, at most 227 KB; :func:`one_pass_cluster` gives ``nc``) and
-    ``feats`` lies on a 16-byte boundary, as a fresh tensor does; the
-    two-pass kernel otherwise (at ``C = 14``, files longer than about
-    33,000 frames).  ``variant`` (``"one_pass"`` or
-    ``"two_pass"``) forces one and ``cluster`` sets the one-pass cluster
-    size, for measurements; a forced one-pass launch that does not fit, or a
-    cluster the card refuses, raises.  Nothing is retried on another
-    kernel."""
-    global KERNEL_LAUNCHES, ONE_PASS_LAUNCHES, TWO_PASS_LAUNCHES
+    i32, all contiguous on one CUDA device; raises on anything else.  The
+    kernel takes ``feats`` on a 16-byte boundary, as a fresh tensor lies: a
+    view off one is copied to one first.  Its plan (:func:`long_plan`) cuts
+    rows into tiles of at most ``LONG_TILE`` frames over the CTAs the card
+    holds at once.  A build or launch failure raises; nothing is retried."""
+    global KERNEL_LAUNCHES
     dev = feats.device
     if dev.type != "cuda":
         raise ValueError(f"feats on {dev}: the kernel takes CUDA tensors")
     if feats.dim() != 3:
         raise ValueError(f"feats must be [B, C, T], got {tuple(feats.shape)}")
     B, C, T = feats.shape
-    if min(B, C, T) == 0 or max(B, C) > _MAX_GRID_YZ:
+    if min(B, C, T) == 0 or C * T >= 2**31:
         raise ValueError(f"unsupported feats shape {tuple(feats.shape)}")
     if not 0 <= num_temporal <= C:
         raise ValueError(f"num_temporal {num_temporal} outside [0, {C}]")
     _check(feats, "feats", torch.float32, dev, (B, C, T))
     _check(norm, "norm", torch.float32, dev, (C, 2))
     _check(lens, "lens", torch.int32, dev, (B,))
-    if variant not in (None, "one_pass", "two_pass"):
-        raise ValueError(f"unknown variant {variant!r}")
 
     lib = _prep_lib()
+    if feats.data_ptr() % 16:
+        feats = feats.clone()
     out = torch.empty_like(feats)
     shift_t = torch.empty(B, dtype=torch.float32, device=dev)
     shift_s = torch.empty(B, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nc = one_pass_cluster(B, C, T, sms) if cluster is None else cluster
-    aligned = feats.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    if variant is None:
-        variant = "one_pass" if nc is not None and aligned else "two_pass"
-    if variant == "one_pass":
-        if nc is None or one_pass_smem(C, T, nc) > _MAX_DYN_SMEM:
-            raise ValueError(f"[{C}, {T}] files do not fit a cluster")
-        if not aligned:
-            raise ValueError("the one-pass kernel needs 16-byte aligned "
-                             "feats")
-        _raise_on(lib, lib.prep_one_pass_launch(
-            feats.data_ptr(), norm.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), shift_t.data_ptr(), shift_s.data_ptr(),
-            B, C, T, num_temporal, nc, dev.index, stream),
-            f"prep one-pass launch (cluster {nc})")
-        ONE_PASS_LAUNCHES += 1
-    else:
-        # T-segments per file for the shift pass: enough blocks for two per
-        # SM
-        segs = max(1, min(math.ceil(T / 256), math.ceil(2 * sms / B)))
-        seg_len = math.ceil(T / segs)
-        partial = torch.empty((B, math.ceil(T / seg_len), 2),
-                              dtype=torch.float64, device=dev)
-        _raise_on(lib, lib.prep_launch(
-            feats.data_ptr(), norm.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), shift_t.data_ptr(), shift_s.data_ptr(),
-            partial.data_ptr(), B, C, T, num_temporal, seg_len, dev.index,
-            stream), "prep two-pass launch")
-        TWO_PASS_LAUNCHES += 1
+    plan = long_plan(B, C, T, long_ctas(min(LONG_TILE, T), dev.index))
+    if 2 * B * C * plan.tiles_per_row >= 2**31:
+        raise ValueError(f"{tuple(feats.shape)}: too many tiles for 32-bit "
+                         f"ticket offsets")
+    partial = torch.empty(B * C * plan.tiles_per_row, dtype=torch.float64,
+                          device=dev)
+    # the ticket (two words), one arrival counter a file, the prefix
+    scratch = torch.zeros(2 * B + 3, dtype=torch.int32, device=dev)
+    _raise_on(lib, lib.prep_long_launch(
+        feats.data_ptr(), norm.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        shift_t.data_ptr(), shift_s.data_ptr(), partial.data_ptr(),
+        scratch.data_ptr(), B, C, T, num_temporal, plan.tile,
+        plan.tiles_per_row, int(plan.resident), plan.grid, dev.index,
+        stream), f"prep_long launch ({plan})")
     KERNEL_LAUNCHES += 1
     return out, shift_t
 

@@ -1,5 +1,6 @@
 """The port's database preparation on the CPU against the JAX package's
-Pallas kernel (interpret mode) and its XLA formulation.
+Pallas kernel (interpret mode) and its XLA formulation, and the work plan
+of the long-file kernel ``prep_long``.
 
 On the CPU the port runs ``prepare_database_reference``, the plain
 PyTorch version that ``chip_smoke.py`` holds the CUDA kernel to on the card.
@@ -7,6 +8,8 @@ Tolerances: values and shifts atol 1e-6 (f32 sums over at most 1,200
 elements in another order); NaN and inf positions equal; frames at or past
 a file's length exactly ``-shift``.
 """
+
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -116,32 +119,181 @@ def test_cpu_tensors_take_the_reference_and_never_the_kernel():
     assert P.KERNEL_LAUNCHES == k0
 
 
-@pytest.mark.parametrize("B,C,T,want", [
-    (2048, 14, 10752, 8),      # the staging slab: 8 CTAs of 73.5 KiB
-    (32, 14, 11925, 16),       # a -c chunk: one wave, spread twice as wide
-    (7, 14, 3000, 6),
-    (2048, 14, 33000, 8),      # the longest files a cluster holds
-    (2048, 14, 33300, None),   # longer: the two-pass kernel
-    (65, 14, 40448, None),
-    (5, 14, 3, 2),
-])
-def test_one_pass_cluster_rule(B, C, T, want):
-    """The wrapper's choice between the kernels, made from the shape alone
-    (132 SMs, an H100 SXM): a cluster size where a file fits 8 CTAs'
-    shared memory, None where it does not."""
-    nc = P.one_pass_cluster(B, C, T, 132)
-    assert nc == want
-    if nc is not None:
-        assert P.one_pass_smem(C, T, nc) <= P._MAX_DYN_SMEM
-        assert nc * P.one_pass_smem(C, T, nc) >= C * T * 4
-    else:
-        assert P.one_pass_smem(C, T, P.MAX_CLUSTER) > P._MAX_DYN_SMEM
-
-
 def test_variant_counters_stay_apart_from_the_reference():
     feats, lens, norm = _batch(seed=1)
-    before = (P.KERNEL_LAUNCHES, P.ONE_PASS_LAUNCHES, P.TWO_PASS_LAUNCHES)
+    k0, r0 = P.KERNEL_LAUNCHES, P.REFERENCE_CALLS
     P.prepare_database(feats, norm, lens, device="cpu")
-    assert (P.KERNEL_LAUNCHES, P.ONE_PASS_LAUNCHES,
-            P.TWO_PASS_LAUNCHES) == before
-    assert P.KERNEL_LAUNCHES == P.ONE_PASS_LAUNCHES + P.TWO_PASS_LAUNCHES
+    assert (P.KERNEL_LAUNCHES, P.REFERENCE_CALLS) == (k0, r0 + 1)
+
+
+# ---------------------------------------------------------------------------
+# the padded tail: nothing in it reaches the result
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fill", ["nan", "inf", "-inf", "mixed"])
+def test_nan_and_inf_in_the_padded_tail_change_nothing(fill):
+    """``prep_long`` never reads a frame at or past a file's length: the
+    semantics it relies on.  NaN or inf written there leave the plain
+    version equal to the XLA formulation and the Pallas kernel (interpret
+    mode), and the tail exactly ``-shift``."""
+    feats, lens, norm = _batch(seed=21)
+    clean, clean_sh = P.prepare_database(feats, norm, lens, device="cpu")
+    dirty = feats.copy()
+    rng = np.random.default_rng(21)
+    for b, n in enumerate(lens):
+        tail = dirty[b, :, n:]
+        if fill == "mixed":
+            tail[...] = rng.choice(np.float32([np.nan, np.inf, -np.inf, 1e30]),
+                                   tail.shape)
+        else:
+            tail[...] = np.float32(fill)
+    out, sh = P.prepare_database(dirty, norm, lens, device="cpu")
+    assert np.isfinite(out.numpy()).all()
+    np.testing.assert_array_equal(out.numpy(), clean.numpy())
+    np.testing.assert_array_equal(sh.numpy(), clean_sh.numpy())
+    ref_p, sh_p = jax_prep(dirty, norm, lens, interpret=True)
+    _assert_same(out, sh, ref_p, sh_p)
+    ref_x, sh_x = prepare_database_xla(jnp.asarray(dirty), jnp.asarray(norm),
+                                       jnp.asarray(lens))
+    _assert_same(out, sh, ref_x, sh_x)
+    out = out.numpy()
+    for b, n in enumerate(lens):
+        if n < feats.shape[2]:
+            np.testing.assert_array_equal(
+                out[b, :1, n:], np.full_like(out[b, :1, n:], -sh[b].item()))
+            np.testing.assert_array_equal(
+                out[b, 1:, n:], np.broadcast_to(out[b, 1:2, n:n + 1],
+                                                out[b, 1:, n:].shape))
+
+
+# ---------------------------------------------------------------------------
+# prep_long's work plan: coverage, order and progress of the queue
+# ---------------------------------------------------------------------------
+
+#: resident CTAs of 48 KiB tiles on an H100 SXM: four a SM on 132 SMs
+H100_CTAS = 4 * 132
+
+
+def _queue(plan, C, T, lens):
+    nv = -(-np.clip(np.asarray(lens, np.int64), 0, T) // plan.tile)
+    return (nv, *P.long_queue(plan, C, T, lens))
+
+
+def _check_queue(plan, C, T, lens):
+    """Every tile written exactly once, every tile of valid frames reduced
+    exactly once, each file's reduce tiles dispensed before any tile that
+    only writes, and reduce tickets within the partials' scratch."""
+    B, NT = len(lens), plan.tiles_per_row
+    nv, kind, f, row, k = _queue(plan, C, T, lens)
+    assert ((0 <= row) & (row < C) & (0 <= k) & (k < NT)).all()
+    tile_id = (f * C + row) * NT + k
+    reduce = (kind == P.HOLD) | (kind == P.REDUCE)
+    write = kind != P.REDUCE
+    valid = k < nv[f]
+    assert (valid == (kind != P.TAIL)).all()
+    assert np.array_equal(np.bincount(tile_id[write], minlength=B * C * NT),
+                          np.ones(B * C * NT, np.int64))
+    reduced = np.bincount(tile_id[reduce], minlength=B * C * NT)
+    assert np.array_equal(reduced.reshape(B, C, NT),
+                          (np.arange(NT) < nv[:, None, None]).repeat(C, 1)
+                          .astype(np.int64))
+    tickets = np.arange(len(kind))
+    last_reduce = np.full(B, -1)
+    np.maximum.at(last_reduce, f[reduce], tickets[reduce])
+    first_write = np.full(B, len(kind))
+    only = write & ~reduce
+    np.minimum.at(first_write, f[only], tickets[only])
+    assert (last_reduce < first_write).all()
+    assert tickets[reduce].max(initial=-1) < B * C * NT   # partial[t]
+
+
+def _simulate(plan, C, T, lens):
+    """``plan.grid`` resident CTAs take tickets in order.  A CTA that has
+    to wait for its file's shifts stays held until no CTA is free, and only
+    then are the held CTAs of published files released (the slowest
+    schedule the card could run).  Returns 1 if the queue stalls (no CTA
+    free and none can be released), else 0."""
+    nv, kind, f, _, _ = _queue(plan, C, T, lens)
+    need = (C * nv).tolist()
+    arrived = [0] * len(lens)
+    held = Counter()
+    free = plan.grid
+    kind, f = kind.tolist(), f.tolist()
+    i = 0
+    while i < len(kind):
+        if free == 0:
+            done = [b for b in held if arrived[b] == need[b]]
+            if not done:
+                return 1
+            for b in done:
+                free += held.pop(b)
+            continue
+        b = f[i]
+        if kind[i] in (P.HOLD, P.REDUCE):
+            arrived[b] += 1          # a CTA never waits before it arrives
+        if kind[i] != P.REDUCE and arrived[b] < need[b]:
+            held[b] += 1
+            free -= 1
+        i += 1
+    assert arrived == need
+    return 0
+
+
+def _lens(seed, B, T):
+    """Lengths of 2-6 minutes (clipped to T), one file at T, and the edge
+    lengths 0, 1, T - 1 and one past T."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(10335, 31008, B).clip(0, T)
+    edges = [T, 0, 1, T - 1, T + 5]
+    lens[:len(edges)] = edges[:B]
+    return [int(n) for n in lens]
+
+
+@pytest.mark.parametrize("B,C,T,ctas,tile,resident", [
+    (65535, 14, 33061, H100_CTAS, P.LONG_TILE, True),    # the shortest T
+    (2048, 14, 36352, H100_CTAS, P.LONG_TILE, True),     # the song slab
+    (65, 14, 40448, H100_CTAS, P.LONG_TILE, True),
+    (32, 14, 338990, H100_CTAS, P.LONG_TILE, True),      # the hour's -c chunk
+    (8, 14, 529673, H100_CTAS, P.LONG_TILE, False),      # 1.7 h: re-read
+    (8, 14, 662092, H100_CTAS, P.LONG_TILE, False),      # 2 h broadcasts
+    (3, 14, 2_000_000, H100_CTAS, P.LONG_TILE, False),   # 6.5 h
+    (1, 14, 454656, H100_CTAS, P.LONG_TILE, True),       # the longest held
+    (1, 14, 454657, H100_CTAS, P.LONG_TILE, False),      # one frame more
+    (2048, 14, 10752, H100_CTAS, P.LONG_TILE, True),     # the staging slab
+    (32, 14, 11925, H100_CTAS, P.LONG_TILE, True),       # a -c chunk
+    (2048, 14, 33300, H100_CTAS, P.LONG_TILE, True),     # 3 tiles a row
+    (9, 14, 4097, H100_CTAS, P.LONG_TILE, True),         # odd T
+    (5, 14, 3, H100_CTAS, P.LONG_TILE, True),            # tiny
+    (6, 5, 7, H100_CTAS, P.LONG_TILE, True),
+    (40, 3, 1000, 48, 64, True),            # a file's tiles fill the grid
+    (40, 3, 1000, 47, 64, False),           # one CTA short of that
+    (9, 2, 700, 5, 50, False),
+    (2, 5, 77, 400, 16, True),              # fewer tiles than CTAs
+])
+def test_long_plan(B, C, T, ctas, tile, resident):
+    plan = P.long_plan(B, C, T, ctas, tile)
+    assert 1 <= plan.grid <= ctas
+    assert plan.resident == resident
+    assert plan.tile <= tile
+    # the row tiles partition [0, T): none empty
+    assert (plan.tiles_per_row - 1) * plan.tile < T <= (
+        plan.tiles_per_row * plan.tile)
+    if resident:
+        assert C * plan.tiles_per_row <= plan.grid
+    assert 2 * B * C * plan.tiles_per_row < 2**31      # 32-bit offsets
+    lens = _lens(B + T, B, T)
+    _check_queue(plan, C, T, lens)
+    # the queue makes progress (a file's shifts depend on its own tiles
+    # only, so the first files stand for the rest where B is large)
+    sim = lens[:max(5, 200_000 // (2 * C * plan.tiles_per_row))]
+    assert _simulate(plan, C, T, sim) == 0
+
+
+def test_the_simulation_sees_a_stall():
+    """The negative control: holding a file's tiles on a grid one CTA too
+    small for them stalls the queue, and the simulation says so."""
+    C, T, tile = 3, 1000, 64
+    plan = P.long_plan(40, C, T, 48, tile)
+    assert plan.resident and plan.grid == 48
+    assert _simulate(plan._replace(grid=47), C, T, [T] * 4) == 1
+    assert _simulate(plan, C, T, [T] * 4) == 0
