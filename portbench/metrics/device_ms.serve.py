@@ -1,0 +1,9 @@
+"""Device busy milliseconds per request: the union of the device's kernel,
+copy and set intervals over the traced requests, divided by their count."""
+
+
+def read(ctx):
+    s = ctx.summary
+    if s is None or s.device_events == 0:
+        return None
+    return 1e3 * s.busy_s / s.units

@@ -1,0 +1,15 @@
+"""The least time a request needs over its device time, in %: the staged
+features read once (files × channels × frames × 4 bytes, from the
+configuration's own sizes) at the card's memory rate, over
+``device_ms.serve``.  The same work whatever implements the request."""
+
+from portbench.roofline import share_pct
+
+
+def read(ctx):
+    s = ctx.summary
+    if s is None or s.device_events == 0:
+        return None
+    c = ctx.config
+    moved = c["files"] * c["channels"] * c["frames"] * 4
+    return share_pct(ctx, moved, s.busy_s / s.units)
