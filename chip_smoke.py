@@ -1739,6 +1739,7 @@ def selfsim_checks(db: str, out: str, card: str, dev: str = "cuda") -> None:
     sampled block pairs."""
     from strugatzki_tpu_torch import SelfSimilarity, SelfSimilarityConfig
     from strugatzki_tpu_torch.analysis import self_similarity as SS
+    from strugatzki_tpu_torch.runtime import logging as tracing
 
     SelfSimilarity.device = dev
     meta = os.path.join(db, "piece_feat.xml")
@@ -1759,15 +1760,11 @@ def selfsim_checks(db: str, out: str, card: str, dev: str = "cuda") -> None:
     _fresh_peak()
     p1, first, warm = _latency(run(1), warm=1)
     peak = _peak_gb()
-    timing = io.StringIO()
-    os.environ["STRUGATZKI_RENDER_TIMING"] = "1"
-    try:
-        with contextlib.redirect_stderr(timing):
-            _profile(f"-x decimation 1 (extent {n}, streamed PNG, deflate "
-                     "level 6)", run(1, name="self_profiled.png"), card,
-                     warmup=False)
-    finally:
-        del os.environ["STRUGATZKI_RENDER_TIMING"]
+    # the profiled render's spans: its stages and the PNG's own time
+    tracing.reset()
+    _profile(f"-x decimation 1 (extent {n}, streamed PNG, deflate level 6)",
+             run(1, name="self_profiled.png"), card, warmup=False)
+    spans = tracing.snapshot()["spans"]
     w, hh, rows = _png_rows(p1, (n - 1 - j,))
     require((w, hh) == (n, n), f"{p1}: {w}x{hh}, extent {n}")
     want = SS._colorize(np.float32([[rec_sim]]), "psycho", 1.0, 1.0, False)
@@ -1776,9 +1773,13 @@ def selfsim_checks(db: str, out: str, card: str, dev: str = "cuda") -> None:
     print(f"analyses: -x decimation 1: {os.path.getsize(p1)} B PNG of "
           f"{n} x {n}; wall first {first:.3f} s, warm {warm:.3f} s; peak "
           f"device memory {peak:.3f} GB on {card}")
-    for line in timing.getvalue().splitlines():
-        if line.startswith("render timing"):
-            print(f"analyses: -x decimation 1 (profiled run): {line}")
+    render = spans["x.render"]
+    print(f"analyses: -x decimation 1 (profiled run): total "
+          f"{render['total_s']:.3f}s = dispatch "
+          f"{spans['x.dispatch']['total_s']:.3f}s + fetch-wait "
+          f"{spans['x.fetch']['total_s']:.3f}s + raster "
+          f"{spans['x.raster']['total_s']:.3f}s + png(filter+deflate+io) "
+          f"{render['self_s']:.3f}s")
 
     n2 = n // 2
     i2 = i // 2

@@ -25,6 +25,7 @@ from ..analysis.common import (feat_to_full, full_to_feat,
 from ..analysis.topk import SimSortedSet
 from ..config import CorrelationConfig, ExtractionConfig, Match
 from ..kernels import mathref as M
+from ..runtime.logging import trace, traced
 from ..runtime.processor import Processor, ProcessorFactory
 from ..span import Span, spacing
 from ..kernels import corr as K
@@ -79,7 +80,8 @@ class InputTemplate:
         key = (which, dev)
         t = self._staged.get(key)
         if t is None:
-            t = torch.as_tensor(arr, dtype=torch.float32, device=dev)
+            with trace("corr.template"):
+                t = torch.as_tensor(arr, dtype=torch.float32, device=dev)
             self._staged[key] = t
         return t
 
@@ -92,6 +94,7 @@ class InputTemplate:
         return self._stage("s", self.spectral_centered, device)
 
     @staticmethod
+    @traced("corr.template")
     def from_features(features: np.ndarray, norm: Optional[np.ndarray],
                       start: int, stop: int) -> "InputTemplate":
         """Reference ``readInBuffer`` (:83-98): slice feature frames
@@ -183,6 +186,7 @@ def _single_window_trace(avail: np.ndarray, norm, template: InputTemplate,
     return (np.array([sim], np.float32), np.array([boost], np.float32))
 
 
+@traced("c.correlate")
 def correlate_database(meta_in: ExtractionConfig, db_entries, norm,
                        config: CorrelationConfig,
                        check_aborted=lambda: None,
@@ -192,6 +196,10 @@ def correlate_database(meta_in: ExtractionConfig, db_entries, norm,
                        device="cuda") -> List[Match]:
     """Run the full search on ``device``.  ``db_entries`` is a list of
     ``(ExtractionConfig, features_loader)`` pairs.
+
+    Its span ``c.correlate`` has the reads (``c.read``), the launches and
+    fetches (``c.device``) and the templates (``corr.template``) as
+    children, so its self time is the host replay and selection.
 
     With ``mesh`` (a :class:`~..parallel.sweep.FilesMesh`, which then
     decides the devices) the chunk size rounds up to a multiple of the
@@ -211,7 +219,8 @@ def correlate_database(meta_in: ExtractionConfig, db_entries, norm,
     t2f = lambda i: feat_to_full(i, step)
 
     # --- input templates (reference :80-107) --------------------------------
-    in_feats = read_features(meta_in)
+    with trace("c.read"):
+        in_feats = read_features(meta_in)
     pi = cfg.punch_in
     matrix_in = InputTemplate.from_features(
         in_feats, norm, f2f(pi.span.start), f2f(pi.span.stop))
@@ -264,35 +273,39 @@ def correlate_database(meta_in: ExtractionConfig, db_entries, norm,
         is queued while the host replays the current one."""
         if not chunk_entries:
             return None
-        feats_list = [load() for _, load in chunk_entries]
-        lens = [f.shape[1] for f in feats_list]
-        # pad the batch to a fixed chunk size and bucketed width (the JAX
-        # package's shapes: selection then sees the same traces)
-        while len(feats_list) < chunk_size:
-            feats_list.append(np.zeros((feats_list[0].shape[0], 1), np.float32))
-            lens.append(0)
-        raw, lens_arr = pad_stack(feats_list)
-        # the device width must cover the TEMPLATE too: a chunk whose files
-        # are all shorter than the punch would otherwise feed the trace a
-        # Tp < L input
-        t_pad = _bucket(max(raw.shape[2], punch_in_len, punch_out_len))
-        if raw.shape[2] < t_pad:
-            raw = np.pad(raw, ((0, 0), (0, 0), (0, t_pad - raw.shape[2])))
+        with trace("c.read"):
+            feats_list = [load() for _, load in chunk_entries]
+            lens = [f.shape[1] for f in feats_list]
+            # pad the batch to a fixed chunk size and bucketed width (the
+            # JAX package's shapes: selection then sees the same traces)
+            while len(feats_list) < chunk_size:
+                feats_list.append(np.zeros((feats_list[0].shape[0], 1),
+                                           np.float32))
+                lens.append(0)
+            raw, lens_arr = pad_stack(feats_list)
+            # the device width must cover the TEMPLATE too: a chunk whose
+            # files are all shorter than the punch would otherwise feed the
+            # trace a Tp < L input
+            t_pad = _bucket(max(raw.shape[2], punch_in_len, punch_out_len))
+            if raw.shape[2] < t_pad:
+                raw = np.pad(raw, ((0, 0), (0, 0), (0, t_pad - raw.shape[2])))
         if verbose:
             import sys as _sys
             print(f"  chunk: {len(chunk_entries)} files dispatched "
                   f"(device width {t_pad})", file=_sys.stderr)
-        in_b, out_b = _traces(raw, lens_arr)
+        with trace("c.device"):
+            in_b, out_b = _traces(raw, lens_arr)
         return (chunk_entries, feats_list, lens, in_b, out_b)
 
     def collect_chunk(pending_chunk):
         chunk_entries, feats_list, lens, in_b, out_b = pending_chunk
         # fetch once per chunk; slice per-file valid prefixes
-        sims_in_b = fetch(in_b[0])
-        boosts_in_b = fetch(in_b[1])
-        if out_b is not None:
-            sims_out_b = fetch(out_b[0])
-            boosts_out_b = fetch(out_b[1])
+        with trace("c.device"):
+            sims_in_b = fetch(in_b[0])
+            boosts_in_b = fetch(in_b[1])
+            if out_b is not None:
+                sims_out_b = fetch(out_b[0])
+                boosts_out_b = fetch(out_b[1])
         items = []
         scan_delta = min_punch if matrix_out is not None else 0
         for i, (entry, t_i) in enumerate(zip(chunk_entries, lens)):
@@ -501,31 +514,36 @@ class FeatureCorrelation(ProcessorFactory):
         device = cls.device
         mesh = cls.mesh
 
+        @traced("c.search")
         def body(proc: Processor):
-            meta_in = ExtractionConfig.from_xml_file(cfg.meta_input)
-            step = meta_in.step_size
+            # the query's sidecar, the folder's sidecars and the norms
+            with trace("c.meta"):
+                meta_in = ExtractionConfig.from_xml_file(cfg.meta_input)
+                step = meta_in.step_size
 
-            # scan database folder (:42-55)
-            folder = cfg.database_folder
-            meta_abs = os.path.abspath(cfg.meta_input)
-            names = sorted(n for n in os.listdir(folder)
-                           if n.endswith("_feat.xml"))
-            paths = [os.path.join(folder, n) for n in names]
-            paths = [p for p in paths if os.path.abspath(p) != meta_abs]
-            if cls.verbose:
-                print(f"Number of files in database : {len(paths)}")
+                # scan database folder (:42-55)
+                folder = cfg.database_folder
+                meta_abs = os.path.abspath(cfg.meta_input)
+                names = sorted(n for n in os.listdir(folder)
+                               if n.endswith("_feat.xml"))
+                paths = [os.path.join(folder, n) for n in names]
+                paths = [p for p in paths if os.path.abspath(p) != meta_abs]
+                if cls.verbose:
+                    print(f"Number of files in database : {len(paths)}")
 
-            entries = []
-            for p in paths:
-                e = ExtractionConfig.from_xml_file(p)
-                if (e.num_coeffs == meta_in.num_coeffs
-                        and e.step_size == step):
-                    entries.append(
-                        (e, (lambda e_=e: read_features(e_))))
-            if cls.verbose:
-                print(f"Number of compatible files in database : {len(entries)}")
+                entries = []
+                for p in paths:
+                    e = ExtractionConfig.from_xml_file(p)
+                    if (e.num_coeffs == meta_in.num_coeffs
+                            and e.step_size == step):
+                        entries.append(
+                            (e, (lambda e_=e: read_features(e_))))
+                if cls.verbose:
+                    print(f"Number of compatible files in database : "
+                          f"{len(entries)}")
 
-            norm = load_norm(folder, meta_in.num_coeffs) if cfg.normalize else None
+                norm = load_norm(folder, meta_in.num_coeffs) \
+                    if cfg.normalize else None
 
             return correlate_database(
                 meta_in, entries, norm, cfg,

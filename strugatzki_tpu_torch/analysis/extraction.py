@@ -17,6 +17,7 @@ import numpy as np
 from ..config import ChannelsBehavior, ExtractionConfig
 from ..io import audiofile as af
 from ..parallel.sweep import env_mesh, fetch
+from ..runtime.logging import trace
 from ..runtime.processor import Processor, ProcessorFactory
 from ..dsp.frontend import (extract_features, extract_features_batch,
                             extract_features_streaming, finalize_features,
@@ -158,12 +159,13 @@ def extract_batch_cli(in_files, target_dir: str, chan_mode: int,
         try:
             audios = [m for _, _, _, m, _ in pending]
             head_cfg = pending[0][2]
-            feats_dev, _ = extract_features_batch(
-                audios, sr, num_coeffs=head_cfg.num_coeffs,
-                fft_size=head_cfg.fft_size,
-                fft_overlap=head_cfg.fft_overlap, as_device=True,
-                device=device, mesh=mesh)
-            feats_host = fetch(feats_dev)  # ONE fetch per group
+            with trace("f.frontend", files=len(pending)):
+                feats_dev, _ = extract_features_batch(
+                    audios, sr, num_coeffs=head_cfg.num_coeffs,
+                    fft_size=head_cfg.fft_size,
+                    fft_overlap=head_cfg.fft_overlap, as_device=True,
+                    device=device, mesh=mesh)
+                feats_host = fetch(feats_dev)  # ONE fetch per group
         except Exception as e:  # noqa: BLE001 - first file carries the failure
             print("  Failed: ")
             traceback.print_exception(type(e), e, e.__traceback__)
@@ -173,13 +175,14 @@ def extract_batch_cli(in_files, target_dir: str, chan_mode: int,
             if i > 0:
                 print(f"Starting extraction... {os.path.basename(head)}")
             try:
-                total = num_output_frames(len(mono), cfg.step_size)
-                feats = fix_nans(finalize_features(feats_host[i], total))
-                af.write(cfg.feature_output, feats,
-                         af.feature_spec(cfg.num_features,
-                                         sr / cfg.step_size))
-                if cfg.meta_output:
-                    cfg.save_xml(cfg.meta_output)
+                with trace("f.write"):
+                    total = num_output_frames(len(mono), cfg.step_size)
+                    feats = fix_nans(finalize_features(feats_host[i], total))
+                    af.write(cfg.feature_output, feats,
+                             af.feature_spec(cfg.num_features,
+                                             sr / cfg.step_size))
+                    if cfg.meta_output:
+                        cfg.save_xml(cfg.meta_output)
             except Exception as e:  # noqa: BLE001 - abort chain at this file
                 print("  Failed: ")
                 traceback.print_exception(type(e), e, e.__traceback__)
@@ -199,20 +202,25 @@ def extract_batch_cli(in_files, target_dir: str, chan_mode: int,
             channels_behavior=chan_mode).build()
         announced = False
         try:
-            spec = af.read_spec(head)
-            if spec.num_frames * spec.num_channels > STREAMING_THRESHOLD:
+            with trace("f.read"):
+                spec = af.read_spec(head)
+                streamed = (spec.num_frames * spec.num_channels
+                            > STREAMING_THRESHOLD)
+                if not streamed:
+                    audio, spec = af.read(head)
+                    mono = _collapse_mono(audio, spec, cfg)
+            if streamed:
                 if not flush_group():
                     ok = False
                     break
                 print(f"Starting extraction... {os.path.basename(head)}")
                 announced = True
-                Processor(FeatureExtraction._make_body(cfg, device),
-                          name=FeatureExtraction.name).start().result()
+                with trace("f.stream"):
+                    Processor(FeatureExtraction._make_body(cfg, device),
+                              name=FeatureExtraction.name).start().result()
                 print("#" * 25 + "  Success.")
                 report(idx, True)
                 continue
-            audio, spec = af.read(head)
-            mono = _collapse_mono(audio, spec, cfg)
             entry = (idx, head, cfg, mono, spec.sample_rate)
             if group and group[0][4] != spec.sample_rate:
                 if not flush_group():

@@ -24,9 +24,6 @@ Parity notes (as in the JAX package):
 
 from __future__ import annotations
 
-import os
-import sys
-import time
 from collections import deque
 
 import numpy as np
@@ -36,6 +33,7 @@ from ..analysis.common import (full_to_feat, load_norm,
                                normalized, read_features)
 from ..config import (ColorScheme, ExtractionConfig,
                       SelfSimilarityConfig)
+from ..runtime.logging import trace
 from ..runtime.processor import Processor, ProcessorFactory
 from ..util import palette as P
 from ..util.palette import apply_palette
@@ -403,11 +401,11 @@ def self_similarity_to_png(x1: np.ndarray, x2: np.ndarray, half_win: int,
     off-diagonal blocks are recomputed for their mirror stripe (2× the
     matmuls for O(n·block) memory).
 
-    ``STRUGATZKI_RENDER_TIMING=1`` prints the wall split to stderr:
-    "dispatch" (queueing the device work), "fetch-wait" (waiting for device
-    results, including device time not hidden by the stripe-ahead),
-    "raster" (host flip + colorize) and "png" (the rest: filter, deflate,
-    write).
+    Its spans (``runtime/logging.py``) split the wall: ``x.render`` is the
+    whole, and its self time the PNG's filter, deflate and write;
+    ``x.dispatch`` queues the device work, ``x.fetch`` waits for device
+    results (device time the stripe-ahead does not hide included) and
+    ``x.raster`` is the host flip and colorize.
 
     Returns the image extent ``n``.
     """
@@ -419,22 +417,17 @@ def self_similarity_to_png(x1: np.ndarray, x2: np.ndarray, half_win: int,
     if n == 0:
         write_png(path, np.zeros((0, 0, 3), np.uint8))
         return 0
-    timing = ({"dispatch": 0.0, "fetch": 0.0, "raster": 0.0}
-              if os.environ.get("STRUGATZKI_RENDER_TIMING") else None)
-    t_start = time.perf_counter()
 
     def dispatch_stripe(bj):
         """Queue every chunk of column-stripe ``bj``: row-blocks in chunks
         of ``gsize``; for bi > bj the cell is the mirrored upper-triangle
         value → compute (bj, bi), transpose."""
-        t0 = time.perf_counter() if timing else 0.0
         out = []
-        for g0 in range(0, num_blocks, gsize):
-            group = list(range(g0, min(g0 + gsize, num_blocks)))
-            lo_hi = [(min(bi, bj), max(bi, bj)) for bi in group]
-            out.append((group, dispatch(lo_hi)))
-        if timing:
-            timing["dispatch"] += time.perf_counter() - t0
+        with trace("x.dispatch"):
+            for g0 in range(0, num_blocks, gsize):
+                group = list(range(g0, min(g0 + gsize, num_blocks)))
+                lo_hi = [(min(bi, bj), max(bi, bj)) for bi in group]
+                out.append((group, dispatch(lo_hi)))
         return out
 
     def collect_stripe(bj, dispatched):
@@ -442,10 +435,8 @@ def self_similarity_to_png(x1: np.ndarray, x2: np.ndarray, half_win: int,
         c1 = min(c0 + _BLOCK, n)
         stripe = np.empty((n, c1 - c0), dtype)
         for group, dev in dispatched:
-            t0 = time.perf_counter() if timing else 0.0
-            sims_g = fetch(dev)
-            if timing:
-                timing["fetch"] += time.perf_counter() - t0
+            with trace("x.fetch"):
+                sims_g = fetch(dev)
             for bi, sims in zip(group, sims_g):
                 r0 = bi * _BLOCK
                 r1 = min(r0 + _BLOCK, n)
@@ -469,25 +460,17 @@ def self_similarity_to_png(x1: np.ndarray, x2: np.ndarray, half_win: int,
                 dispatch_stripe(bj - 1) if bj > 0 else None)
             stripe = collect_stripe(bj, current)
             # stripe columns j = c0..c1−1 → PNG rows y = n−1−j (descending)
-            t0 = time.perf_counter() if timing else 0.0
-            flipped = stripe.T[::-1]
-            rgb = _pix_to_rgb(flipped, pix[2]) if pix is not None else \
-                _colorize(flipped, colors, color_warp, color_ceil, color_inv)
-            if timing:
-                timing["raster"] += time.perf_counter() - t0
+            with trace("x.raster"):
+                flipped = stripe.T[::-1]
+                rgb = _pix_to_rgb(flipped, pix[2]) if pix is not None else \
+                    _colorize(flipped, colors, color_warp, color_ceil,
+                              color_inv)
             done += 1
             progress(done / num_blocks)
             yield rgb
 
-    write_png_rows(path, n, n, stripes(), level=png_level)
-    if timing:
-        total = time.perf_counter() - t_start
-        png_s = total - sum(timing.values())
-        print(f"render timing (extent {n}, level {png_level}): "
-              f"total {total:.3f}s = dispatch {timing['dispatch']:.3f}s "
-              f"+ fetch-wait {timing['fetch']:.3f}s + raster "
-              f"{timing['raster']:.3f}s + png(filter+deflate+io) "
-              f"{png_s:.3f}s", file=sys.stderr)
+    with trace("x.render", extent=n, level=png_level):
+        write_png_rows(path, n, n, stripes(), level=png_level)
     return n
 
 

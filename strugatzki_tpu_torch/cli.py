@@ -17,7 +17,8 @@ the CPU unless asked.  ``STRUGATZKI_MESH=1`` on a host with more than one
 CUDA device shards ``-f``, ``-c``, ``-s``, ``-x`` and ``-y`` over all of them
 (``parallel/sweep.py::env_mesh``), whatever ``--device`` says; each
 invocation sets the factories' ``mesh`` anew, so ``None`` clears a previous
-run's.
+run's.  ``STRUGATZKI_PROFILE=<dir>`` writes a Chrome trace of each call,
+every thread's spans included (``runtime/logging.py::profile``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from .config import (NORMALIZE_NAME, ChannelsBehavior, CorrelationConfig,
                      SegmentationConfig, SelfSimilarityConfig)
 from .io import audiofile as af
 from .io.formats import AIFF
+from .runtime.logging import profile, traced
 from .runtime.processor import Progress, Result
 from .span import Span
 
@@ -144,6 +146,7 @@ def _add_device(p) -> None:
                    help="Torch device (cuda|cpu ; defaults to 'cuda')")
 
 
+@traced("f.pass")
 def feature_pre(args) -> int:
     """Batch feature extraction (Strugatzki.scala:450-522)."""
     p = _parser(f"{NAME} -f")
@@ -479,7 +482,10 @@ def main(argv=None) -> int:
     if not argv or argv[0] not in _SWITCHES:
         print(_USAGE, file=sys.stderr)
         return 1
-    return _SWITCHES[argv[0]](argv[1:])
+    command = _SWITCHES[argv[0]]
+    # STRUGATZKI_PROFILE=<dir>: one Chrome trace of this call, every thread
+    with profile(command.__name__):
+        return command(argv[1:])
 
 
 if __name__ == "__main__":

@@ -60,6 +60,7 @@ from ..span import Span
 from ..kernels import corr as K
 from ..kernels.prep import prepare_database
 from ..runtime.device import resolve
+from ..runtime.logging import count, trace, traced
 from .sweep import pad_stack
 
 if TYPE_CHECKING:
@@ -1075,6 +1076,7 @@ class FeatureDatabase:
         for i, rng in self._chunks():
             sh = self._shards[i]
             for s in _ranges(rng, step):
+                count("db.files_steps")
                 if sh.spectra is None:
                     yield (i, s) + K.trace_spectra(
                         sh.xs[s], num_temporal=nt) + (False,)
@@ -1084,6 +1086,7 @@ class FeatureDatabase:
                 else:
                     yield (i, s) + tuple(b[s] for b in sh.spectra) + (False,)
 
+    @traced("db.gather")
     def _gather(self, parts):
         """``[(shard index, tuple of device tensors)]`` in row order → the
         tuple of host arrays over all rows: each column concatenated on its
@@ -1105,15 +1108,18 @@ class FeatureDatabase:
         boosts_k[, sims, boosts])`` over all rows."""
         t_padded = self._raw.shape[2]
         parts = [[] for _ in templates]
-        for i, s, X, aux, use_sums in self._spectra_steps(lanes=1):
-            shifts, lens = self._shards[i].shifts[s], self._shards[i].lens[s]
-            for q, t in enumerate(templates):
-                sims, boosts = _trace(X, aux, use_sums, t_padded, t, shifts,
-                                      temp_weight, max_boost,
-                                      self._num_temporal)
-                out = _topk_epilogue(sims, boosts, lens, t.num_frames, k)
-                parts[q].append(
-                    (i, out + (sims, boosts) if with_traces else out))
+        # the host time that queues every step's traces and top-k
+        with trace("db.steps"):
+            for i, s, X, aux, use_sums in self._spectra_steps(lanes=1):
+                shifts = self._shards[i].shifts[s]
+                lens = self._shards[i].lens[s]
+                for q, t in enumerate(templates):
+                    sims, boosts = _trace(X, aux, use_sums, t_padded, t,
+                                          shifts, temp_weight, max_boost,
+                                          self._num_temporal)
+                    out = _topk_epilogue(sims, boosts, lens, t.num_frames, k)
+                    parts[q].append(
+                        (i, out + (sims, boosts) if with_traces else out))
         return [self._gather(p) for p in parts]
 
     def _punch_all(self, pairs, tw_in: float, tw_out: float,
@@ -1123,13 +1129,18 @@ class FeatureDatabase:
         pair the six host arrays of :func:`_punch_from_spectra`."""
         t_padded = self._raw.shape[2]
         parts = [[] for _ in pairs]
-        for i, s, X, aux, use_sums in self._spectra_steps(lanes=2):
-            shifts, lens = self._shards[i].shifts[s], self._shards[i].lens[s]
-            for q, (p_in, p_out, mp, xp) in enumerate(pairs):
-                parts[q].append((i, _punch_from_spectra(
-                    X, aux, use_sums, t_padded, p_in, p_out, shifts, lens,
-                    tw_in, tw_out, max_boost, int(mp), int(xp) - int(mp) + 1,
-                    num_temporal=self._num_temporal, k=k)))
+        # the host time that queues every step's traces, band maximum and
+        # top-k
+        with trace("db.steps"):
+            for i, s, X, aux, use_sums in self._spectra_steps(lanes=2):
+                shifts = self._shards[i].shifts[s]
+                lens = self._shards[i].lens[s]
+                for q, (p_in, p_out, mp, xp) in enumerate(pairs):
+                    parts[q].append((i, _punch_from_spectra(
+                        X, aux, use_sums, t_padded, p_in, p_out, shifts,
+                        lens, tw_in, tw_out, max_boost, int(mp),
+                        int(xp) - int(mp) + 1,
+                        num_temporal=self._num_temporal, k=k)))
         return [self._gather(p) for p in parts]
 
     def _trim(self, *arrays, axis: int = 0):
@@ -1139,6 +1150,7 @@ class FeatureDatabase:
                     for a in arrays)
         return out if len(out) > 1 else out[0]
 
+    @traced("db.query")
     def query(self, template: "InputTemplate", temp_weight: float = 0.5,
               max_boost: float = 8.0, k: int = 4,
               with_traces: bool = False,
@@ -1259,6 +1271,7 @@ class FeatureDatabase:
     #: for any sane ``k_total·num_per_file`` lies far inside this.
     RERANK_LIMIT = 4096
 
+    @traced("db.rerank")
     def _rerank_exact(self, res: QueryResult, template: "InputTemplate",
                       temp_weight: float, max_boost: float) -> None:
         """Replace each returned candidate's (sim, boost) with the exact
@@ -1452,6 +1465,7 @@ class FeatureDatabase:
         sims = np.where(boosts <= max_boost, sims, np.float32(0.0))
         return sims, boosts
 
+    @traced("db.rerank")
     def _rerank_exact_punch(self, res: PunchQueryResult,
                             punch_in: "InputTemplate",
                             punch_out: "InputTemplate",
@@ -1508,6 +1522,7 @@ class FeatureDatabase:
 
     # -- punch queries and batches ------------------------------------------
 
+    @traced("db.punch")
     def query_punch(self, punch_in: "InputTemplate",
                     punch_out: "InputTemplate", min_punch: int,
                     max_punch: int, temp_weight_in: float = 0.5,
@@ -1564,6 +1579,7 @@ class FeatureDatabase:
             if arr is not None:
                 setattr(res, name, self._fit_k_cols(arr, k, fill))
 
+    @traced("db.query_batch")
     def query_batch(self, templates: Sequence["InputTemplate"],
                     temp_weight: float = 0.5, max_boost: float = 8.0,
                     k: int = 4,
@@ -1605,6 +1621,7 @@ class FeatureDatabase:
                 results[qi] = res
         return results
 
+    @traced("db.punch_batch")
     def query_punch_batch(self, pairs: Sequence[tuple],
                           temp_weight_in: float = 0.5,
                           temp_weight_out: float = 0.5,

@@ -23,6 +23,7 @@ XLA launches, so a plain thread is the right amount of runtime.
 
 from __future__ import annotations
 
+import contextvars
 import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Generic, Optional, TypeVar
@@ -97,7 +98,12 @@ class Processor(Generic[T]):
         # weighted sub-progress support (reference ProcessorImpl.await(child, weight))
         self._progress_base = 0.0
         self._progress_weight = 1.0
-        self._thread = threading.Thread(target=self._run, name=name, daemon=True)
+        # the body runs in a copy of the starting thread's context (a new
+        # thread's own is empty), so its spans name the caller's open span
+        # as their parent (runtime/logging.py)
+        self._thread = threading.Thread(
+            target=contextvars.copy_context().run, args=(self._run,),
+            name=name, daemon=True)
 
     # -- lifecycle -----------------------------------------------------------------
 
