@@ -7,8 +7,9 @@ Run from the repository root on a machine with an NVIDIA Hopper card.  It
 drives the README quick start through the port (``strugatzki_tpu_torch``):
 
 1. device: the card's name and power limit, and the full-f32 matmul settings;
-2. build: ``csrc/prep.cu`` (the prep kernel ``prep_long``) with nvcc for
-   sm_90a;
+2. build: ``csrc/prep.cu`` (the prep kernel ``prep_long``) and
+   ``csrc/band.cu`` (the punch's band maximum ``band_max_kernel``) with nvcc
+   for sm_90a;
 3. kernel: ``prep_long``, one persistent launch over a queue of row tiles,
    against its plain PyTorch version on the card, compared there: at a
    ``-c`` chunk ``[32, 14, 11925]`` (an odd ``T``; once more with NaN and
@@ -23,7 +24,16 @@ drives the README quick start through the port (``strugatzki_tpu_torch``):
    give the same bits.  It is timed at each of these main-path shapes with
    the L2 warm and cold (inputs rotated through more than the 50 MB L2)
    beside its bound (the valid frames read once, every frame written once)
-   and the plain version's time;
+   and the plain version's time.  ``band_max_kernel`` against its plain
+   version on the card, bit for bit in ``band_sim`` and ``best_j``: on
+   adversarial traces (NaN, +-inf, +-0 and ties; band widths 1 to 5,000;
+   ``min_punch`` 0 and past ``Tp``; tombstones, files shorter than the
+   punch-in, an out trace off a 16-byte boundary) and at a punch files step
+   of the serving deployment (455 rows, ``W_in`` 9,892, ``W_out`` 10,322,
+   S 690, and S 26,000), and on the wide path (bands of 30,000 frames
+   and more at ``Tp`` 80,000, the levels through a global scratch, ``j_sel
+   + 2`` launches); timed warm and cold at the step beside its bound (both traces read
+   once, both results written once) and the plain version's time;
 4. slice: 20 PCM16 files of 120 s plus a query, written from the seed;
    ``-f`` over the folder, ``--stats``, and a punch-in/punch-out search
    (``FeatureCorrelation``, temporal weight 0.5, 12-20 s, top 10) on CUDA.
@@ -47,8 +57,11 @@ drives the README quick start through the port (``strugatzki_tpu_torch``):
    sim > 0.999.  It prints the staging time, the first and warm latencies
    of the four query families and of the exact re-rank, the peak device
    memory of staging and of the queries, and a profile of one warm
-   ``query`` and ``query_punch``; then it stages the same files without the
-   spectra cache and times ``query`` and ``query_punch`` again.
+   ``query`` and ``query_punch``; one ``query_punch`` must launch
+   ``band_max_kernel`` once a files step and ``query_punch_batch`` of 8
+   pairs eight times a step, never the plain version; then it stages the
+   same files without the spectra cache and times ``query`` and
+   ``query_punch`` again (again once a step).
    modes: the database's capacity modes.  The canary with the compact
    spectra cache and with bfloat16 features, exact families at 1e-4 and
    ``[raw]`` ones at 4e-3; on 64 north-star files the compact cache's raw
@@ -61,8 +74,9 @@ drives the README quick start through the port (``strugatzki_tpu_torch``):
    seconds, resident GB, peak device memory, first and warm latencies of
    the four query families, the planted match first with a re-ranked sim
    > 0.999 and a raw sim within 4e-3 of it; for A also VmRSS, the temp
-   file and its file system's free space, and a profile of one warm
-   compact ``query`` and ``query_punch``.
+   file and its file system's free space, a profile of one warm
+   compact ``query`` and ``query_punch``, and its ``query_punch`` once a
+   files step.
 6. analyses: BASELINE.json's segmentation and self-similarity configs and a
    cross-similarity, written from the seed as PCM16 and run through ``-f``,
    ``--stats`` and the three factories on CUDA.  ``-s`` on a 5-minute
@@ -84,7 +98,8 @@ drives the README quick start through the port (``strugatzki_tpu_torch``):
    single-device database gone first): the planted file first in ``query``
    and ``query_punch``, all four families and the exact re-rank equal to the
    single-device database's results (sims 3e-5, frames where decided),
-   staging seconds, latencies and peak memory; the slice's search with
+   staging seconds, latencies and peak memory, ``band_max_kernel`` once a
+   files step of every shard; the slice's search with
    ``FeatureCorrelation.mesh``, match for match with the unsharded search,
    one prep launch per shard and chunk; a one-hour recording made from the
    seed through ``sharded_extract_long`` (2e-5), ``sharded_long_file_trace``
@@ -101,12 +116,14 @@ Every phase that drives a path of the port sets the prep counters to 0
 just before and reads them just after: the slice, the database and the
 mesh must launch ``prep_long`` and never the plain version; the analyses
 (``-s``, ``-x``, ``-y``) prepare on the host and must not reach the plain
-version.
+version.  The band counters are read the same way around each punch path
+it drives (a cache mode, the batch, the mesh), beside the files steps the
+recorder counts.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit from nvidia-smi, and the
-one before that the kernel's launch count (summed over the paths driven)
-and times as JSON.  Any failed check raises: the script then exits non-zero
+one before that each kernel's launch count (summed over the paths driven
+and counted) and times as JSON.  Any failed check raises: the script then exits non-zero
 and prints no result line.
 Without CUDA, or without the package beside it, it exits non-zero at once.
 """
@@ -513,6 +530,171 @@ def kernel_phase(seed: int, card: str):
     return {"prep_long": {"err": errs[0], "ms": slab_ms,
                           "plain_ms": slab_plain, "bound_ms": slab_bound,
                           "shape": [_QUERY_CHUNK, C, 10752]}}
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the band-maximum kernel against its plain version
+# ---------------------------------------------------------------------------
+
+#: a punch files step of the serving deployment: 455 two-minute files
+#: (``_files_step`` at T 10,752 with two traces a file), a 10 s punch-in and
+#: a 5 s punch-out, lengths 12-20 s
+BAND_STEP = dict(B=455, Tp=10_752, L_in=861, L_out=431, min_punch=1034,
+                 S=690)
+
+
+def _adversarial_traces(rng, B, W_in, W_out):
+    """Traces of few distinct values (ties everywhere) with NaN, +-inf and
+    +-0 among them, the first windows NaN as a constant group's are."""
+    pool = np.float32([-0.5, -0.0, 0.0, 0.25, 0.5, 0.75, 1.0, np.inf,
+                       -np.inf, np.nan])
+    prob = np.array([1, 1, 1, 2, 3, 3, 2, 0.3, 0.3, 0.6])
+    s_in = rng.choice(pool, (B, W_in), p=prob / prob.sum())
+    s_out = rng.choice(pool, (B, W_out), p=prob / prob.sum())
+    s_out[:, :40] = np.nan
+    return s_in.astype(np.float32), s_out.astype(np.float32)
+
+
+def compare_band(s_in, s_out, lens, L_in, L_out, Tp, min_punch, S):
+    """The kernels and the plain version on the card: ``band_sim`` and
+    ``best_j`` bit for bit, masked positions included, in the launches the
+    plan gives; returns the plan."""
+    import torch
+
+    from strugatzki_tpu_torch.kernels import band
+
+    plan = band.band_plan(Tp - L_in + 1, Tp, min_punch, S)
+    k0 = band.KERNEL_LAUNCHES
+    got = band.band_max(s_in, s_out, lens, L_in, L_out, Tp, min_punch, S)
+    require(band.KERNEL_LAUNCHES - k0 == (plan.j_sel + 2 if plan.wide
+                                          else 1),
+            f"{band.KERNEL_LAUNCHES - k0} launches for {plan}")
+    want = band.band_max_reference(s_in, s_out, lens, L_in, L_out, Tp,
+                                   min_punch, S)
+    require(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1]),
+            f"band_max_kernel differs from the plain version at "
+            f"{tuple(s_in.shape)}, L {L_in}/{L_out}, Tp {Tp}, min_punch "
+            f"{min_punch}, S {S} ({plan})")
+    return plan
+
+
+def band_bound_ms(B: int, W_in: int, W_out: int) -> float:
+    """The least time of one band-maximum call: ``sims_in`` and
+    ``sims_out`` read once, ``band_sim`` and ``best_j`` written once, the
+    lengths read, over the memory rate."""
+    return (B * (3 * W_in + W_out) * 4 + B * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def band_phase(seed: int, card: str):
+    """``band_max_kernel`` against ``band_max_reference`` on the card, bit
+    for bit, on adversarial traces (NaN, +-inf, +-0, ties; band widths 1,
+    2, 511-513, 690 and wider than a tile; ``min_punch`` 0 and past ``Tp``;
+    tombstones and files shorter than the punch-in; rows that start off a
+    16-byte boundary), at a punch files step of the serving deployment,
+    and on the wide path; times at the step.  Returns the kernel's entry of
+    the ``kernels`` line."""
+    import torch
+
+    from strugatzki_tpu_torch.kernels import band
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 13)
+    Tp, L_in, L_out = 1536, 200, 120
+    W_in, W_out = Tp - L_in + 1, Tp - L_out + 1
+    lens = torch.tensor([Tp, 0, L_in - 5, 700, Tp - 301, 1000],
+                        dtype=torch.int32, device=dev)
+    n = 0
+    for S in (1, 2, 511, 512, 513, 690, 5000):
+        for mp in (0, 37, Tp + 50):
+            s_in, s_out = (torch.as_tensor(a, device=dev) for a in
+                           _adversarial_traces(rng, len(lens), W_in, W_out))
+            compare_band(s_in, s_out, lens, L_in, L_out, Tp, mp, S)
+            n += 1
+    # the whole out trace one element off a 16-byte boundary
+    flat = torch.empty(len(lens) * W_out + 1, device=dev)
+    s_out = flat[1:].view(len(lens), W_out)
+    s_out.copy_(torch.as_tensor(_adversarial_traces(
+        rng, len(lens), W_in, W_out)[1], device=dev))
+    compare_band(s_in, s_out, lens, L_in, L_out, Tp, 37, 690)
+    print(f"kernel: band_max_kernel equals the plain version bit for bit on "
+          f"{n + 1} adversarial cases ([{len(lens)}, {W_in}] in, [{len(lens)}"
+          f", {W_out}] out; S 1-5000; min_punch 0, 37, Tp + 50; an "
+          f"unaligned out trace)")
+
+    st = BAND_STEP
+    B, Tp, L_in, L_out = st["B"], st["Tp"], st["L_in"], st["L_out"]
+    W_in, W_out = Tp - L_in + 1, Tp - L_out + 1
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    s_in = torch.rand((B, W_in), device=dev, generator=g) * 2 - 1
+    s_out = torch.rand((B, W_out), device=dev, generator=g) * 2 - 1
+    s_out[::7, :300] = float("nan")              # constant groups
+    s_out[1::5] = (s_out[1::5] * 8).round() / 8  # ties
+    lens = torch.full((B,), SCALE_FRAMES, dtype=torch.int32, device=dev)
+    lens[-3:] = 0                                # padding rows
+    lens[0] = L_in - 1                           # no valid punch-in window
+    lens[1] = 5000
+    for S in (st["S"], 26_000):
+        plan = compare_band(s_in, s_out, lens, L_in, L_out, Tp,
+                            st["min_punch"], S)
+        print(f"kernel: band_max_kernel equals the plain version bit for "
+              f"bit at the punch step [{B}, {W_in}] / [{B}, {W_out}], S {S} "
+              f"({plan})")
+    # bands whose halo does not fit one CTA's shared memory: the wide path,
+    # on adversarial traces of 80,000 frames (the second block clamped in
+    # the last case)
+    TW = 80_000
+    tw_in, tw_out = TW - L_in + 1, TW - L_out + 1
+    wlens = torch.tensor([TW, 0, L_in - 5, 40_000, TW - 301, 70_000],
+                         dtype=torch.int32, device=dev)
+    for mp, S in ((1034, 30_000), (0, 33_000), (9_000, 65_536),
+                  (79_000, 40_000)):
+        w_in, w_out = (torch.as_tensor(a, device=dev) for a in
+                       _adversarial_traces(rng, len(wlens), tw_in, tw_out))
+        plan = compare_band(w_in, w_out, wlens, L_in, L_out, TW, mp, S)
+        require(plan.wide, f"S {S}, min_punch {mp}: not the wide path")
+    wargs = (w_in, w_out, wlens, L_in, L_out, TW, 1034, 30_000)
+    wide_ms = cuda_ms(lambda: band.band_max_cuda(*wargs), 20)
+    wide_plain = cuda_ms(lambda: band.band_max_reference(*wargs), 5)
+    print(f"kernel: the wide path equals the plain version bit for bit at "
+          f"[{len(wlens)}, {tw_in}] / [{len(wlens)}, {tw_out}], S 30,000 "
+          f"to 65,536 (last {plan}); at S 30,000, min_punch 1034 "
+          f"({band.band_plan(tw_in, TW, 1034, 30_000).j_sel + 2} launches):"
+          f" {wide_ms:.4f} ms, plain version {wide_plain:.4f} ms")
+    del w_in, w_out
+
+    plan = band.band_plan(W_in, Tp, st["min_punch"], st["S"])
+    bufs = [(s_in, s_out)] + [(s_in.clone(), s_out.clone())
+                              for _ in range(3)]
+    args = (lens, L_in, L_out, Tp, st["min_punch"], st["S"])
+
+    def run(fn, cold, iters):
+        it = itertools.count()
+
+        def call():
+            a, b = bufs[next(it) % len(bufs)] if cold else bufs[0]
+            fn(a, b, *args)
+        return cuda_ms(call, iters)
+
+    plain = [run(band.band_max_reference, False, 10)]
+    warm = [run(band.band_max_cuda, False, 200) for _ in range(2)]
+    cold = [run(band.band_max_cuda, True, 200) for _ in range(2)]
+    plain.append(run(band.band_max_reference, False, 10))
+    w, c, pm = sum(warm) / 2, sum(cold) / 2, sum(plain) / 2
+    bound = band_bound_ms(B, W_in, W_out)
+    print(f"kernel: band_max_kernel at the punch step [{B}, {W_in}] / "
+          f"[{B}, {W_out}], S {st['S']} ({plan.tiles} tiles a row of "
+          f"{plan.tile}, {plan.pairs * 8} B of shared memory a CTA): warm "
+          f"{w:.4f} ms, cold {c:.4f} ms (runs warm {warm[0]:.4f}, "
+          f"{warm[1]:.4f}, cold {cold[0]:.4f}, {cold[1]:.4f}; {len(bufs)} "
+          f"rotated inputs of {(s_in.numel() + s_out.numel()) * 4 / 1e6:.1f}"
+          f" MB); bound {bound:.4f} ms, share {bound / c:.1%} cold, "
+          f"{bound / w:.1%} warm; plain version {pm:.4f} ms (runs "
+          f"{plain[0]:.4f}, {plain[1]:.4f}); on {card}")
+    del bufs
+    torch.cuda.empty_cache()
+    return {"err": 0.0, "ms": c, "plain_ms": pm, "bound_ms": bound,
+            "shape": [B, W_in, W_out, st["S"]]}
 
 
 # ---------------------------------------------------------------------------
@@ -1146,6 +1328,41 @@ def _scale_set(seed: int, phase: str = "database"):
 SCALE_RESULTS: dict = {}
 
 
+def band_counted(phase: str, label: str, fn, per_step: int = 1) -> Counter:
+    """Run the punch call ``fn`` with the band counters set to 0 just before
+    and read just after, and the recorder on at DEBUG (its lines held back)
+    to count the files steps: ``band_max_kernel`` must launch ``per_step``
+    times a step (once a pair of a batch) and the plain version never.
+    Returns a Counter of the launches."""
+    import logging
+
+    from strugatzki_tpu_torch.kernels import band
+    from strugatzki_tpu_torch.runtime import logging as slog
+
+    level = slog.logger.level
+    handlers = [(h, h.level) for h in slog.logger.handlers]
+    slog.logger.setLevel(logging.DEBUG)
+    for h, _ in handlers:
+        h.setLevel(logging.INFO)
+    slog.reset()
+    band.KERNEL_LAUNCHES = band.REFERENCE_CALLS = 0
+    try:
+        fn()
+    finally:
+        slog.logger.setLevel(level)
+        for h, lv in handlers:
+            h.setLevel(lv)
+    steps = slog.snapshot()["counters"].get("db.files_steps", 0)
+    slog.reset()
+    n, refs = band.KERNEL_LAUNCHES, band.REFERENCE_CALLS
+    print(f"{phase}: {label}: {steps} files steps, band_max_kernel launches "
+          f"{n}, plain-version calls {refs}")
+    require(steps > 0 and n == per_step * steps and refs == 0,
+            f"{label}: band_max_kernel launches are not {per_step} a files "
+            f"step, or it reached the plain version")
+    return Counter(band_max_kernel=n)
+
+
 def scale_phase(seed: int, card: str) -> Counter:
     """10,000 two-minute files staged with the spectra cache; the planted
     file must come first in query and query_punch."""
@@ -1195,6 +1412,11 @@ def scale_phase(seed: int, card: str) -> Counter:
     _profile("warm query", lambda: db.query(t_in, k=4), card)
     _profile("warm query_punch",
              lambda: db.query_punch(t_in, t_out, *BAND, k=4), card)
+    launches += band_counted("database", "scale: one query_punch",
+                             lambda: calls["query_punch"](db))
+    launches += band_counted(
+        "database", "scale: one query_punch_batch of 8",
+        lambda: calls["query_punch_batch of 8"](db), per_step=8)
     del db
 
     # the same database without the spectra cache: each query computes
@@ -1203,6 +1425,9 @@ def scale_phase(seed: int, card: str) -> Counter:
         "scale database, cache_spectra=False",
         lambda: stage_and_query(False, ["query", "query_punch"]))
     launches += n
+    launches += band_counted("database",
+                             "scale without the cache: one query_punch",
+                             lambda: calls["query_punch"](db))
     for name, (got, _, _) in res2.items():
         want = res[name][0]
         require(np.array_equal(got.frames[target], want.frames[target])
@@ -1453,6 +1678,8 @@ def modes_phase(seed: int, card: str) -> Counter:
     _profile("warm compact query (A)", lambda: db.query(t_in, k=4), card)
     _profile("warm compact query_punch (A)",
              lambda: db.query_punch(t_in, t_out, *BAND, k=4), card)
+    launches += band_counted("modes", "A: one compact query_punch",
+                             lambda: calls["query_punch"](db))
     del db
     torch.cuda.empty_cache()
 
@@ -1949,6 +2176,9 @@ def mesh_scale(seed: int, card: str, mesh) -> Counter:
           f"single-device database: sims max |err| {worst_s:.3e} "
           f"({SIM_TOL}), boosts max rel err {worst_b:.3e} ({BOOST_RTOL}), "
           f"frames equal where decided; prep launches {per_shard} a shard")
+    launches += band_counted(
+        "mesh", f"scale: one query_punch over {MESH_SHARDS} shards",
+        lambda: calls["query_punch"](db))
     del db, entries, feats
     torch.cuda.empty_cache()
     return launches
@@ -2207,6 +2437,13 @@ def mesh_phase(seed: int, card: str) -> Counter:
     return launches
 
 
+#: each CUDA source and the kernel it holds, and the TPU kernel each
+#: replaces (the band maximum replaces XLA ops, no TPU kernel)
+KERNEL_SOURCES = {"prep": "prep_long", "band": "band_max_kernel"}
+REPLACES = {"prep_long": "strugatzki_tpu/kernels/pallas_prep.py:39",
+            "band_max_kernel": None}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2238,16 +2475,17 @@ def main(argv=None) -> int:
           f"float32 matmul precision 'highest'; host {os.cpu_count()} "
           f"cores, {len(os.sched_getaffinity(0))} usable")
 
-    t0 = time.perf_counter()
-    _build.load("prep")
-    info = _build.build_info["prep"]
-    print(f"build: csrc/prep.cu (prep_long) with nvcc "
-          f"{' '.join(_build.NVCC_FLAGS)} in {info['seconds']:.2f} s "
-          f"({time.perf_counter() - t0:.2f} s with loading)")
-    for line in info["log"].splitlines():
-        if ("registers" in line or "Compiling entry" in line
-                or "spill" in line):
-            print(f"build: {line.strip()}")
+    for src, kernel in KERNEL_SOURCES.items():
+        t0 = time.perf_counter()
+        _build.load(src)
+        info = _build.build_info[src]
+        print(f"build: csrc/{src}.cu ({kernel}) with nvcc "
+              f"{' '.join(_build.NVCC_FLAGS)} in {info['seconds']:.2f} s "
+              f"({time.perf_counter() - t0:.2f} s with loading)")
+        for line in info["log"].splitlines():
+            if ("registers" in line or "Compiling entry" in line
+                    or "spill" in line):
+                print(f"build: {line.strip()}")
 
     walls = []
 
@@ -2258,6 +2496,7 @@ def main(argv=None) -> int:
         return out
 
     kernels = timed("kernel", kernel_phase)
+    kernels["band_max_kernel"] = timed("band", band_phase)
     launches = timed("slice", slice_phase)
     launches += timed("database", database_phase)
     launches += timed("modes", modes_phase)
@@ -2266,13 +2505,14 @@ def main(argv=None) -> int:
     print(f"phases: wall {', '.join(walls)}")
 
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda",
-        "source": "strugatzki_tpu_torch/csrc/prep.cu",
-        "replaces": "strugatzki_tpu/kernels/pallas_prep.py:39",
-        "launches": launches[name], "max_abs_err": k["err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": "bytes", "library_ms": None, "shape": k["shape"]}
-        for name, k in kernels.items()]}))
+        "name": kernel, "route": "cuda",
+        "source": f"strugatzki_tpu_torch/csrc/{src}.cu",
+        "replaces": REPLACES[kernel], "launches": launches[kernel],
+        "max_abs_err": kernels[kernel]["err"], "ms": kernels[kernel]["ms"],
+        "plain_ms": kernels[kernel]["plain_ms"],
+        "bound_ms": kernels[kernel]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "shape": kernels[kernel]["shape"]}
+        for src, kernel in KERNEL_SOURCES.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

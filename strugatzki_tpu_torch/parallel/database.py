@@ -58,6 +58,7 @@ from ..analysis.common import feat_to_full
 from ..config import ExtractionConfig, Match
 from ..span import Span
 from ..kernels import corr as K
+from ..kernels.band import band_max
 from ..kernels.prep import prepare_database
 from ..runtime.device import resolve
 from ..runtime.logging import count, trace, traced
@@ -477,19 +478,6 @@ def _trace(X, aux, use_sums: bool, t_padded: int, tmpl: "InputTemplate",
               temp_weight, max_boost, num_temporal=num_temporal)
 
 
-def _shift_left(x: torch.Tensor, sh: int, fill) -> torch.Tensor:
-    """``x[..., sh:]`` refilled to full width with ``fill``."""
-    sh = min(sh, x.shape[-1])
-    return torch.cat([x[..., sh:], torch.full_like(x[..., :sh], fill)], -1)
-
-
-def _window(x: torch.Tensor, start: int, width: int) -> torch.Tensor:
-    """``x[..., start:start + width]`` with the start clamped into range,
-    as ``lax.dynamic_slice`` clamps it."""
-    start = min(max(start, 0), x.shape[-1] - width)
-    return x[..., start:start + width]
-
-
 def _punch_from_spectra(X, aux, use_sums: bool, t_padded: int, punch_in,
                         punch_out, shifts_t, lens, tw_in: float,
                         tw_out: float, max_boost: float, min_punch: int,
@@ -504,7 +492,8 @@ def _punch_from_spectra(X, aux, use_sums: bool, t_padded: int, punch_in,
     scored ``√(inSim·outSim)`` (:370) and gated on ``inSim > 0`` (:342 with
     ``low ≥ 0``), then a masked top-k over ``t``.  Because the gate makes
     ``inSim`` a positive factor, the best length is the band's sliding
-    maximum of ``outSim``, taken by sparse-table doubling: ⌊log2 S⌋ passes
+    maximum of ``outSim``, taken by :func:`~..kernels.band.band_max` (one
+    CUDA kernel launch on a card): sparse-table doubling, ⌊log2 S⌋ passes
     of (max, earliest argmax), then the larger of the two overlapping power
     blocks.  Every comparison is a strict ``>``, so ties keep the earliest
     out index, like the reference's scan.  ``min_punch``/``scan_span`` are
@@ -513,63 +502,21 @@ def _punch_from_spectra(X, aux, use_sums: bool, t_padded: int, punch_in,
     """
     L_in, L_out = punch_in.num_frames, punch_out.num_frames
     Tp = t_padded
-    W_in = Tp - L_in + 1
     W_out = Tp - L_out + 1
-    dev = X.device
     sims_in, boosts_in = _trace(X, aux, use_sums, Tp, punch_in, shifts_t,
                                 tw_in, max_boost, num_temporal)
     sims_out, boosts_out = _trace(X, aux, use_sums, Tp, punch_out, shifts_t,
                                   tw_out, max_boost, num_temporal)
-
-    # validity: punch-in scan runs over len − minPunch frames (:183);
-    # punch-out windows must fit the file
-    t_ix = torch.arange(W_in, device=dev)
-    w_in_valid = (lens - min_punch - (L_in - 1))[:, None]
-    in_valid = (t_ix < w_in_valid) & (sims_in > 0.0)
-    o_ix = torch.arange(W_out, device=dev)
-    out_ok = o_ix < (lens - (L_out - 1))[:, None]
-    # pad the out trace so every banded read is in range
-    pad = W_in + Tp - W_out
-    B = sims_out.shape[0]
-    out_vals = torch.cat(
-        [torch.where(out_ok, sims_out, -math.inf),
-         torch.full((B, pad), -math.inf, dtype=sims_out.dtype, device=dev)],
-        -1)
-    out_boosts_p = torch.cat(
-        [boosts_out, torch.ones((B, pad), dtype=boosts_out.dtype,
-                                device=dev)], -1)
-    w_pad = out_vals.shape[-1]
-
-    n_levels = max(1, int(np.ceil(np.log2(w_pad))) + 1)
-    # exact integer ⌊log2 S⌋ (float log2 can misround at powers of two)
-    j_sel = min(max(scan_span, 1).bit_length() - 1, n_levels - 1)
-    p = 1 << j_sel
-    lv = out_vals
-    la = torch.arange(w_pad, dtype=torch.int32, device=dev).expand(B, w_pad)
-    for j in range(j_sel):
-        sh = 1 << j
-        v2 = _shift_left(lv, sh, -math.inf)
-        a2 = _shift_left(la, sh, 0)
-        take = v2 > lv
-        lv, la = torch.where(take, v2, lv), torch.where(take, a2, la)
-    # block 1 at offset min_punch, block 2 at min_punch + scan_span − p
-    v1, a1 = _window(lv, min_punch, W_in), _window(la, min_punch, W_in)
-    off2 = min_punch + scan_span - p
-    v2, a2 = _window(lv, off2, W_in), _window(la, off2, W_in)
-    take2 = v2 > v1
-    out_best = torch.where(take2, v2, v1)
-    o_best = torch.where(take2, a2, a1)             # absolute out index
-    best_j = (o_best - min_punch - t_ix).to(torch.int32)
-
-    best = torch.where(in_valid & (out_best > -math.inf),
-                       sims_in * out_best, -math.inf)
-    band_sim = torch.where(best > 0.0, torch.sqrt(torch.clamp_min(best, 0.0)),
-                           -math.inf)
+    band_sim, best_j = band_max(sims_in, sims_out, lens, L_in, L_out, Tp,
+                                min_punch, scan_span)
     vals, t_idx = _topk(band_sim, k)
     j_k = torch.gather(best_j, -1, t_idx)
     b_in = torch.gather(boosts_in, -1, t_idx)
-    o_k = (t_idx + min_punch + j_k).clamp(0, w_pad - 1)
-    b_out = torch.gather(out_boosts_p, -1, o_k)
+    # past the out trace a punch-out boost reads 1
+    o_k = t_idx + min_punch + j_k
+    b_out = torch.where(
+        o_k < W_out, torch.gather(boosts_out, -1, o_k.clamp(0, W_out - 1)),
+        1.0)
     # each candidate's punch-in-only sim: the exact selection replay needs
     # it for the reference's ``inSim > low²`` scan gate (:342)
     si = torch.gather(sims_in, -1, t_idx)
