@@ -18,6 +18,11 @@ A run: set-up, then whole units back to back for ``seconds`` (and, with
 ``trace``, a profiled stretch of ``mix["profile_units"]`` units after the
 first), then the peak memory, then the program's state is freed and the
 outputs are held to the plain reference.
+
+A cell runs on its ``chips`` cards, ``cuda:0`` … ``cuda:<chips - 1>``
+(``Ctx.devices``; one card is ``"cuda"``).  The result's ``device.count``
+is the cell's cards and ``memory_peak_bytes`` the fullest card's peak;
+device busy time is each card's own union, averaged over the cell's cards.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from dataclasses import dataclass, field
 from portbench import traces
 
 __all__ = ["BASE", "Ctx", "load_parts", "run_cell", "result_line",
-           "BANNED"]
+           "BANNED", "cards"]
 
 BASE = os.path.dirname(os.path.abspath(__file__))
 #: top-level module names the process that prints a result may not hold
@@ -90,6 +95,8 @@ class Ctx:
     trace: bool
     device: str
     variant: str | None = None
+    chips: int = 1
+    devices: tuple = ()                            # the cell's cards
     tmp: str = ""
     setup_s: float = 0.0
     units: list = field(default_factory=list)      # [(t0, t1, ok)]
@@ -115,10 +122,26 @@ def _device_info(device: str):
     return "cpu", "cpu"
 
 
-def _peak(device: str) -> int:
+def _cell_devices(device: str, chips: int) -> tuple:
+    """The cell's cards: ``device`` alone for one, ``cuda:0`` … for more
+    (``cpu`` repeated on the CPU)."""
+    if chips == 1:
+        return (device,)
+    if device.startswith("cuda"):
+        return tuple(f"cuda:{i}" for i in range(chips))
+    return (device,) * chips
+
+
+def cards(devices) -> list:
+    """The distinct CUDA devices among ``devices``, in order."""
+    return list(dict.fromkeys(d for d in devices if d.startswith("cuda")))
+
+
+def _peak(devices) -> int:
+    """The fullest card's ``max_memory_allocated`` (0 on the CPU)."""
     import torch
-    return int(torch.cuda.max_memory_allocated()) \
-        if device.startswith("cuda") else 0
+    return max((int(torch.cuda.max_memory_allocated(d))
+                for d in cards(devices)), default=0)
 
 
 def _profiled(ctx: Ctx, driver, state, i: int, unit_span: str):
@@ -134,13 +157,14 @@ def _profiled(ctx: Ctx, driver, state, i: int, unit_span: str):
         for _ in range(n):
             _one(ctx, driver, state, i, unit_span)
             i += 1
-        if ctx.device.startswith("cuda"):
-            torch.cuda.synchronize()
+        for d in cards(ctx.devices):
+            torch.cuda.synchronize(d)
     fd, path = tempfile.mkstemp(suffix=".json", dir=ctx.tmp)
     os.close(fd)
     try:
         prof.export_chrome_trace(path)
-        ctx.summary = traces.summarize(traces.load(path), unit_span)
+        ctx.summary = traces.summarize(traces.load(path), unit_span,
+                                       ctx.chips)
     finally:
         os.unlink(path)
     return i
@@ -162,13 +186,22 @@ def _one(ctx: Ctx, driver, state, i: int, unit_span: str):
 
 def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
              trace: bool, device: str, t_start: float,
-             variant: str | None = None, base: str = BASE):
-    """One run of a cell → ``(result line dict, checks)``."""
+             variant: str | None = None, base: str = BASE, devices=None):
+    """One run of a cell → ``(result line dict, checks)``.  ``devices``
+    replaces the cell's cards (one device may repeat, as a test's
+    ``["cpu"] * 4`` does)."""
     cell, config, mix, driver, readers = load_parts(bench, cell_name, base)
+    devices = tuple(devices or _cell_devices(device, cell["chips"]))
+    if len(devices) != cell["chips"]:
+        raise ValueError(f"{cell_name} runs on {cell['chips']} devices, "
+                         f"not {len(devices)}")
     if device.startswith("cuda"):
         import torch
-        torch.cuda.reset_peak_memory_stats()
-    ctx = Ctx(cell_name, config, mix, seed, seconds, trace, device, variant)
+        torch.cuda.init()               # before a card is named by index
+        for d in cards(devices):
+            torch.cuda.reset_peak_memory_stats(d)
+    ctx = Ctx(cell_name, config, mix, seed, seconds, trace, devices[0],
+              variant, chips=cell["chips"], devices=devices)
     ctx.platform, ctx.card = _device_info(device)
     ctx.tmp = tempfile.mkdtemp(prefix="portbench_")
     state = None
@@ -188,7 +221,7 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
         if trace and ctx.summary is None:
             i = _profiled(ctx, driver, state, i, unit_span)
         ctx.window = (w0, ctx.units[-1][1])
-        ctx.peak_bytes = _peak(device)
+        ctx.peak_bytes = _peak(devices)
         ctx.facts = driver.facts(state)
         driver.release(state)
         checks = driver.check(state, state.outputs, ctx)
@@ -211,8 +244,8 @@ def result_line(ctx: Ctx, metrics: dict, checks) -> dict:
     failed = sum(1 for u in ctx.units if not u[2])
     correct = (bool(ctx.units) and failed == 0
                and all(v <= lim for _, v, lim in checks))
-    device = {"platform": ctx.platform, "kind": ctx.card, "count": 1,
-              "memory_peak_bytes": ctx.peak_bytes}
+    device = {"platform": ctx.platform, "kind": ctx.card,
+              "count": ctx.chips, "memory_peak_bytes": ctx.peak_bytes}
     line = {"correct": correct, "attempted": len(ctx.units),
             "failed": failed, "metrics": metrics, "device": device}
     if ctx.trace and ctx.summary is not None:

@@ -1,5 +1,6 @@
-"""Device busy milliseconds per request: the union of the device's kernel,
-copy and set intervals over the traced requests, divided by their count."""
+"""Device busy milliseconds per request: the union of a card's kernel, copy
+and set intervals over the traced requests, averaged over the cell's
+cards, divided by their count."""
 
 
 def read(ctx):

@@ -1,4 +1,5 @@
-"""torch.cuda.max_memory_allocated() over set-up and window, in GB."""
+"""torch.cuda.max_memory_allocated() over set-up and window, in GB, of the
+fullest of the cell's cards."""
 
 
 def read(ctx):

@@ -1,8 +1,8 @@
 """The prep kernel's share of its memory roofline per ``-c`` search, in %:
 the valid frames of the searched files read once and written once (2 × 4
 bytes × channels × Σ frames, from the generated files' lengths) at the
-card's memory rate, over the device time of the ``prep_long`` kernels per
-search."""
+memory rate of the cell's cards together, over the device time of the
+``prep_long`` kernels per search (a card's on average)."""
 
 from portbench.roofline import share_pct
 

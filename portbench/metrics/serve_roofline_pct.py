@@ -1,7 +1,9 @@
 """The least time a request needs over its device time, in %: the staged
 features read once (files × channels × frames × 4 bytes, from the
-configuration's own sizes) at the card's memory rate, over
-``device_ms.serve``.  The same work whatever implements the request."""
+configuration's own sizes) at the memory rate of the cell's cards
+together, over ``device_ms.serve`` (a card's on average): the bytes set
+against the card-seconds busy.  The same work whatever implements the
+request."""
 
 from portbench.roofline import share_pct
 

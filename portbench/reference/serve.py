@@ -28,8 +28,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["normalise", "Spectra", "direct_trace", "tf32", "query_topk",
-           "band_best", "punch_topk"]
+__all__ = ["normalise", "Template", "Spectra", "direct_trace", "tf32",
+           "query_topk", "band_best", "punch_topk"]
 
 
 def normalise(x: torch.Tensor, norm: torch.Tensor) -> torch.Tensor:
@@ -47,17 +47,28 @@ def _template(tmpl: torch.Tensor, nt: int):
     return out
 
 
-def _finish(dots, sums, tmpl, L, w, max_boost, nt):
+class Template:
+    """A template ``[C, L]`` with what every trace of it needs: each
+    group's centred cells, deviation and cell count, and row 0's log mean.
+    Worked out once, with its reads back from the device, so that tracing
+    it against many blocks of files reads nothing back."""
+
+    def __init__(self, tmpl: torch.Tensor, nt: int = 1) -> None:
+        self.L = tmpl.shape[-1]
+        self.groups = _template(tmpl, nt)
+        self.ln_a = math.log(float(tmpl[0].mean()))
+
+
+def _finish(dots, sums, t: Template, w, max_boost):
     """Traces from each group's template dots and window (sum, sum of
     squares), and row 0's window sums: ``(sims, boosts)``."""
     sims = 0.0
-    for (c, sd_a, n), dot, (s, q), wg in zip(_template(tmpl, nt), dots,
-                                              sums[:2], (w, 1.0 - w)):
+    for (c, sd_a, n), dot, (s, q), wg in zip(t.groups, dots, sums[:2],
+                                              (w, 1.0 - w)):
         mu = s / n
         sd_b = torch.sqrt(torch.clamp_min(q / n - mu * mu, 0.0))
         sims = sims + wg * dot / (sd_a * sd_b * n)
-    ln_a = math.log(float(tmpl[0].mean()))
-    boosts = torch.exp((ln_a - torch.log(sums[2] / L)) / 0.6)
+    boosts = torch.exp((t.ln_a - torch.log(sums[2] / t.L)) / 0.6)
     sims = torch.where(boosts <= max_boost, sims, torch.zeros_like(sims))
     return sims, boosts
 
@@ -81,18 +92,18 @@ class Spectra:
         self.N = 1 << (self.T - 1).bit_length()
         self.X = torch.fft.rfft(x, n=self.N, dim=-1)
 
-    def trace(self, tmpl: torch.Tensor, w: float, max_boost: float):
-        """``(sims, boosts)`` ``[B, T − L + 1]`` of ``tmpl [C, L]``."""
-        L, nt = tmpl.shape[-1], self.nt
-        W = self.T - L + 1
+    def trace(self, tmpl, w: float, max_boost: float):
+        """``(sims, boosts)`` ``[B, T − L + 1]`` of ``tmpl``, a
+        :class:`Template` or a tensor ``[C, L]``."""
+        t = tmpl if isinstance(tmpl, Template) else Template(tmpl, self.nt)
+        nt, W = self.nt, self.T - t.L + 1
         dots = []
-        for (c, _, _), rows in zip(_template(tmpl, nt),
+        for (c, _, _), rows in zip(t.groups,
                                    (slice(0, nt), slice(nt, None))):
             A = torch.fft.rfft(c, n=self.N, dim=-1)
             prod = (self.X[:, rows] * A.conj()).sum(dim=-2)
             dots.append(torch.fft.irfft(prod, n=self.N, dim=-1)[..., :W])
-        return _finish(dots, _window_sums(self.x, L, nt), tmpl, L, w,
-                       max_boost, nt)
+        return _finish(dots, _window_sums(self.x, t.L, nt), t, w, max_boost)
 
 
 def tf32(t: torch.Tensor) -> torch.Tensor:
@@ -109,12 +120,11 @@ def direct_trace(x: torch.Tensor, tmpl: torch.Tensor, w: float,
     :func:`tf32`) is applied to every operand of a product or a sum: the
     file's cells, the template's and the centred template's."""
     op = operand or (lambda t: t)
-    x, tmpl = op(x), op(tmpl)
-    L = tmpl.shape[-1]
+    x, t = op(x), Template(op(tmpl), nt)
     dots = [F.conv1d(x[None, rows], op(c)[None])[0, 0]
-            for (c, _, _), rows in zip(_template(tmpl, nt),
+            for (c, _, _), rows in zip(t.groups,
                                        (slice(0, nt), slice(nt, None)))]
-    return _finish(dots, _window_sums(x, L, nt), tmpl, L, w, max_boost, nt)
+    return _finish(dots, _window_sums(x, t.L, nt), t, w, max_boost)
 
 
 def _masked(v: torch.Tensor, valid: int) -> torch.Tensor:

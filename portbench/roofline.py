@@ -19,16 +19,20 @@ def peak(card: str, key: str):
 
 
 def share_pct(ctx, bytes_moved: float, seconds: float):
-    """100 × (bytes at the card's memory rate) / measured seconds; None
-    when there is nothing measured or no peak for the card."""
+    """100 × (bytes at the memory rate of the cell's cards together) /
+    measured seconds, ``seconds`` being a card's on average (as
+    ``Summary.busy_s`` is): the bytes set against the card-seconds summed
+    over the cell's cards.  None when there is nothing measured or no peak
+    for the card."""
     rate = peak(ctx.card, "hbm_bytes_per_s")
     if rate is None or not seconds or seconds <= 0:
         return None
-    return 100.0 * bytes_moved / rate / seconds
+    return 100.0 * bytes_moved / (ctx.chips * rate) / seconds
 
 
 def idle_pct(ctx):
-    """100 × (1 − device busy ÷ wall) over the traced stretch."""
+    """100 × (1 − device busy ÷ wall) over the traced stretch, busy being
+    a card's on average."""
     s = ctx.summary
     if s is None or s.window_s <= 0 or s.device_events == 0:
         return None

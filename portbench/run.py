@@ -12,7 +12,10 @@ one JSON object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the
 end-to-end metrics, or with ``--trace 1`` the per-layer ones read from a
 torch.profiler stretch), ``device`` (and ``breakdown`` when traced), and
 last ``checks``, each compared number with its limit; the same numbers are
-the last lines of standard error.  Without a CUDA card, without the
+the last lines of standard error.  The cell runs on its ``chips`` cards,
+``cuda:0`` onwards: ``device.count`` is that number, ``memory_peak_bytes``
+the fullest card's peak, and a traced run's ``busy_s`` a card's on
+average.  With fewer CUDA cards than the cell asks for, without the
 program beside the benchmark, or if the process holds a JAX module when the
 window has closed, it exits non-zero and prints no result.
 """
@@ -55,8 +58,8 @@ def main(argv=None) -> int:
         return 2
     if (not torch.cuda.is_available()
             or torch.cuda.device_count() < chips[args.workload]):
-        print("portbench: needs a CUDA card; none is available",
-              file=sys.stderr)
+        print(f"portbench: needs {chips[args.workload]} CUDA card(s); "
+              f"{torch.cuda.device_count()} available", file=sys.stderr)
         return 2
 
     line, checks = harness.run_cell(bench, args.workload, args.seed,

@@ -21,11 +21,19 @@ def setup(tmp_path_factory):
 def _run(setup, cell, seed, variant):
     import time
 
+    import torch
+
     from portbench import harness
 
     base, bench, names = setup
+    chips = next(w["chips"] for w in bench["workloads"]
+                 if w["name"] == names[cell])
+    # a cell on more cards than the machine has runs its shards on one
+    devices = None if torch.cuda.device_count() >= chips \
+        else ["cuda:0"] * chips
     return harness.run_cell(bench, names[cell], seed, 0.5, False, "cuda",
-                            time.perf_counter(), variant=variant, base=base)
+                            time.perf_counter(), variant=variant, base=base,
+                            devices=devices)
 
 
 @pytest.mark.card

@@ -8,7 +8,9 @@ import re
 import shutil
 import subprocess
 import sys
+import types
 
+import pytest
 
 from portbench import harness
 
@@ -39,7 +41,7 @@ def test_benchmark_json_keeps_its_format():
     for w in b["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert NAME.match(w["name"]) and NAME.match(w["traffic"])
-        assert w["config"] in configs and w["chips"] == 1
+        assert w["config"] in configs and w["chips"] in (1, 4)
         assert 1 <= len(w["why"]) <= 200 and "\n" not in w["why"]
         assert os.path.isfile(os.path.join(harness.BASE, "workloads",
                                            f"{w['traffic']}.json"))
@@ -67,12 +69,25 @@ def test_benchmark_json_keeps_its_format():
         # every cell a per-layer metric lists reports what it moves
         for w in m["workloads"]:
             assert w in e2e[m["moves"]].get("workloads", cells)
+    # a quarter of the cells, rounded down, may ask for four cards; one
+    # always may
+    four = [w for w in b["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(cells) // 4)
     for cell in cells:
         reported = [m for m in b["end_to_end"]
                     if cell in m.get("workloads", cells)]
         assert len(reported) >= 2
         assert any(cell in m["workloads"] for m in b["per_layer"])
     assert len(json.dumps(b)) < 64 * 1024
+
+
+def test_every_cell_has_a_tiny_stand_in():
+    """Each cell's configuration and traffic mix hold a ``tiny`` group, from
+    which the CPU tests build its stand-in."""
+    from portbench.tests import tiny
+
+    assert not tiny.MISSING, f"no tiny group in the files of {tiny.MISSING}"
+    assert sorted(tiny.CELLS) == sorted(w["name"] for w in bench()["workloads"])
 
 
 def test_the_result_line_has_the_keys():
@@ -84,6 +99,7 @@ def test_the_result_line_has_the_keys():
     assert list(line) == ["correct", "attempted", "failed", "metrics",
                           "device", "checks"]
     assert line["correct"] and line["device"]["memory_peak_bytes"] == 5
+    assert line["device"]["count"] == 1
     bad = harness.result_line(ctx, {}, [("sim_err", float("nan"), 1e-5)])
     assert not bad["correct"] and bad["checks"]["sim_err"]["value"] == "nan"
     json.dumps(bad, allow_nan=False)
@@ -94,6 +110,63 @@ def _run(cwd, *args):
     return subprocess.run([sys.executable, "portbench/run.py", *args],
                           cwd=cwd, capture_output=True, text=True, env=env,
                           timeout=300)
+
+
+@pytest.mark.parametrize("chips", [1, 4])
+def test_the_peak_is_the_fullest_cards_and_the_count_the_cells(
+        monkeypatch, chips):
+    """``memory_peak_bytes`` (and so ``peak_device_gb``) reads the fullest
+    of the cell's cards, each reset before set-up; ``device.count`` is the
+    cell's cards."""
+    import torch
+
+    peaks = {"cuda": 3 * 10**9} if chips == 1 else {
+        f"cuda:{i}": gb * 10**9 for i, gb in enumerate([2, 5, 3, 4])}
+    reset = []
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda d: peaks[d])
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", reset.append)
+    monkeypatch.setattr(torch.cuda, "init", lambda: None)
+    monkeypatch.setattr(harness, "_device_info",
+                        lambda d: ("gpu", "NVIDIA H100 80GB HBM3"))
+    b = bench()
+    b["workloads"] = [{"name": "one", "config": "c", "traffic": "t",
+                       "chips": chips, "why": "test"}]
+    b["end_to_end"] = [m for m in b["end_to_end"]
+                       if m["name"] == "peak_device_gb"]
+    b["per_layer"] = []
+
+    seen = []
+
+    class Driver:
+        def setup(ctx):
+            seen.append(ctx)
+            return types.SimpleNamespace()
+        unit = facts = release = close = staticmethod(lambda *a: {})
+        check = staticmethod(lambda *a: [])
+
+    def parts(bench, name, base):
+        cell = bench["workloads"][0]
+        return cell, {}, {"span": "request"}, Driver, {
+            "peak_device_gb": ("end_to_end", b["end_to_end"][0],
+                               harness._module(os.path.join(
+                                   harness.BASE, "metrics",
+                                   "peak_device_gb.py"), "peak_reader"))}
+    monkeypatch.setattr(harness, "load_parts", parts)
+    line, _ = harness.run_cell(b, "one", 1, 0.0, False, "cuda", 0.0)
+    assert seen[0].devices == tuple(peaks) and seen[0].chips == chips
+    assert reset == list(peaks)
+    assert line["device"]["count"] == chips
+    assert line["device"]["memory_peak_bytes"] == max(peaks.values())
+    assert line["metrics"]["peak_device_gb"]["value"] == \
+        max(peaks.values()) / 1e9
+    if chips == 4:
+        # a test's repeated device is one card, reset and read once
+        reset.clear()
+        line, _ = harness.run_cell(b, "one", 1, 0.0, False, "cuda", 0.0,
+                                   devices=["cuda:0"] * 4)
+        assert reset == ["cuda:0"] and line["device"]["count"] == 4
+        assert line["device"]["memory_peak_bytes"] == 2 * 10**9
 
 
 def test_run_refuses_without_a_card():
@@ -152,7 +225,8 @@ def test_new_parts_are_found_by_name(tmp_path):
     before = {p: open(os.path.join(base, p), "rb").read()
               for p in ("harness.py", "traffic/database.py",
                         "configs/serve10k.json")}
-    cfg = json.load(open(os.path.join(base, "configs", "tiny_db.json")))
+    cfg = json.load(open(os.path.join(base, "configs",
+                                      "tiny_serve10k.json")))
     cfg["files"] = 20
     json.dump(cfg, open(os.path.join(base, "configs", "throwaway.json"), "w"))
     mix = json.load(open(os.path.join(base, "workloads", "tiny_query.json")))

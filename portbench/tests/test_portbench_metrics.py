@@ -22,7 +22,7 @@ def reader(name):
 def ctx(**kw):
     base = dict(units=[], window=(0.0, 0.0), facts={}, summary=None,
                 config={}, card="NVIDIA H100 80GB HBM3", setup_s=1.5,
-                peak_bytes=0)
+                peak_bytes=0, chips=1)
     base.update(kw)
     return SimpleNamespace(**base)
 
@@ -83,6 +83,11 @@ def test_busy_is_the_union_not_the_sum():
     s = traces.summarize(events(), "request")
     assert s.units == 2 and s.window_s == pytest.approx(200e-6)
     assert s.busy_s == pytest.approx(90e-6)          # 50 + 30 + 10
+    assert s.card_busy_s == [s.busy_s]
+    # the card named in args, or by pid, is the same one card
+    tagged = [dict(e, args={"device": 0}) if e["cat"] == "kernel" else e
+              for e in events()]
+    assert traces.summarize(tagged, "request") == s
     # negative control: the sum of the durations counts the overlap twice
     summed = sum(e["dur"] for e in events()[3:7]) * 1e-6
     assert summed == pytest.approx(120e-6) and summed != s.busy_s
@@ -130,3 +135,53 @@ def test_roofline_bytes_come_from_the_configuration():
                                             card="cpu")) is None
     s.kernels = {}
     assert reader("prep_roofline_pct")(c) is None
+
+
+def two_cards():
+    """The two requests of ``events``, with work on a second card: a kernel
+    named by ``args.device`` and a copy named by its ``pid`` alone."""
+    return events() + [
+        dict(_ev("k3", "kernel", 20, 60), args={"device": 1}, pid=1),
+        dict(_ev("Memcpy HtoD", "gpu_memcpy", 120, 30), pid=1),
+        dict(_ev("k3", "kernel", 70, 40), args={"device": 1}, pid=1),
+    ]
+
+
+@pytest.mark.parametrize("chips", [2, 3])
+def test_busy_is_each_cards_union_averaged_over_the_cells_cards(chips):
+    s = traces.summarize(two_cards(), "request", chips)
+    # card 0 as in ``events``: 90 µs; card 1: 20-110 and 120-150, 120 µs;
+    # a third card of the cell ran nothing and counts as idle
+    want = [90e-6, 120e-6] + [0.0] * (chips - 2)
+    assert s.card_busy_s == pytest.approx(want)
+    assert s.busy_s == pytest.approx(sum(want) / chips)
+    assert s.device_events == 7
+    assert s.kernel_seconds("k3") == pytest.approx(100e-6 / chips)
+    assert s.kernel_seconds("prep_long") == pytest.approx(10e-6 / chips)
+    # idle gaps are where no card of the cell is busy
+    gaps = sorted(round(sec * 1e6) for _, sec in s.gaps)
+    assert gaps == [10, 10, 30]          # 110-120, 150-160, 170-200
+    c = ctx(summary=s, chips=chips,
+            config={"files": 10_000, "channels": 14, "frames": 10_336})
+    assert reader("device_ms.serve")(c) == pytest.approx(
+        1e3 * sum(want) / chips / 2)
+    assert reader("device_idle_pct.serve")(c) == pytest.approx(
+        100 * (1 - sum(want) / chips / 200e-6))
+    # the bytes against the card-seconds summed over the cell's cards
+    moved = 10_000 * 14 * 10_336 * 4
+    assert reader("serve_roofline_pct")(c) == pytest.approx(
+        100 * moved / 3.35e12 / (sum(want) / 2))
+
+
+def test_one_card_reads_as_it_did():
+    """On one card the per-card accounting gives the single union and the
+    card's rate, as before it."""
+    s = traces.summarize(events(), "request", 1)
+    assert s == traces.summarize(events(), "request")
+    c = ctx(summary=s, config={"files": 10_000, "channels": 14,
+                               "frames": 10_336})
+    moved = 10_000 * 14 * 10_336 * 4
+    assert reader("serve_roofline_pct")(c) == \
+        100.0 * moved / 3.35e12 / (s.busy_s / s.units)
+    assert s.kernel_seconds("prep_long") == sum(
+        sec for n, sec in s.kernels.items() if "prep_long" in n)

@@ -1,6 +1,8 @@
 """Whole runs of every cell at a tiny size on the CPU (the harness's look
 for a card skipped), sound and with the timed path broken underneath."""
 
+import copy
+
 import numpy as np
 import pytest
 
@@ -68,6 +70,76 @@ def test_a_broken_serving_path_is_not_correct(setup, monkeypatch, cell, call,
     base, bench, names = setup
     _alter(monkeypatch, FeatureDatabase, call, fault)
     line, _ = tiny.run(base, bench, names[cell])
+    assert not line["correct"], line["checks"]
+
+
+def _shard_left_out(res):
+    """The second of four shards' rows never gathered."""
+    n = res.sims.shape[0] // 4
+    res.sims = res.sims.copy()
+    res.sims[n:2 * n] = -np.inf
+    return res
+
+
+def _on_four(bench, names, cell):
+    """``bench`` with the stand-in of ``cell`` also on four shards, under
+    the same metrics; returns the spec and that cell's name."""
+    x4 = names[cell] + ".x4"
+    b = copy.deepcopy(bench)
+    w = next(w for w in b["workloads"] if w["name"] == names[cell])
+    b["workloads"].append(dict(w, name=x4, chips=4))
+    for kind in ("end_to_end", "per_layer"):
+        for m in b[kind]:
+            if names[cell] in m.get("workloads", []):
+                m["workloads"].append(x4)
+    return b, x4
+
+
+@pytest.fixture
+def meshes(monkeypatch):
+    """The mesh each ``FeatureDatabase`` of the test is staged over."""
+    from strugatzki_tpu_torch.parallel.database import FeatureDatabase
+
+    seen, real = [], FeatureDatabase.__init__
+
+    def spy(self, *a, **kw):
+        seen.append(kw.get("mesh"))
+        real(self, *a, **kw)
+    monkeypatch.setattr(FeatureDatabase, "__init__", spy)
+    return seen
+
+
+@pytest.mark.parametrize("trace", [False, True])
+@pytest.mark.parametrize("cell", ["serve10k.punch", "serve10k.query"])
+def test_a_sound_run_on_four_shards_is_correct(setup, meshes, cell, trace):
+    """A serving cell on four cards stages its database over a files mesh
+    of four shards (four ``cpu`` devices here) and is correct."""
+    base, bench, names = setup
+    b, x4 = _on_four(bench, names, cell)
+    line, _ = tiny.run(base, b, x4, trace=trace)
+    assert line["correct"], line["checks"]
+    assert line["device"]["count"] == 4 and line["failed"] == 0
+    assert [m.size for m in meshes] == [4]
+    assert [str(d) for d in meshes[0].devices] == ["cpu"] * 4
+    if trace:
+        assert {"busy_s", "window_s"} <= set(line["device"])
+    # the same cell on one card takes no mesh
+    tiny.run(base, bench, names[cell])
+    assert meshes[1:] == [None]
+
+
+@pytest.mark.parametrize("fault", [_half_left_out, _frame_moved,
+                                   _sim_altered, _shard_left_out])
+@pytest.mark.parametrize("cell,call", [("serve10k.punch", "query_punch"),
+                                       ("serve10k.query", "query")])
+def test_a_broken_serving_path_on_four_shards_is_not_correct(
+        setup, monkeypatch, cell, call, fault):
+    from strugatzki_tpu_torch.parallel.database import FeatureDatabase
+
+    base, bench, names = setup
+    b, x4 = _on_four(bench, names, cell)
+    _alter(monkeypatch, FeatureDatabase, call, fault)
+    line, _ = tiny.run(base, b, x4)
     assert not line["correct"], line["checks"]
 
 

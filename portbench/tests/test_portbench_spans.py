@@ -109,8 +109,9 @@ def test_the_entries_name_the_readers_cells():
     per_layer = {m["name"]: m for m in bench["per_layer"]}
     for name, (cells, _, _) in READERS.items():
         m = per_layer[name]
-        assert m["workloads"] == cells and m["source"] == "device_trace"
-        assert m["better"] == "lower"
+        # a cell added later may join the list
+        assert set(cells) <= set(m["workloads"])
+        assert m["source"] == "device_trace" and m["better"] == "lower"
 
 
 @pytest.fixture(scope="module")
@@ -124,10 +125,12 @@ def test_a_traced_tiny_run_reports_its_span_metrics(setup, cell, recorder):
     recorder.reset()
     line, _ = tiny.run(base, bench, names[cell], trace=True)
     assert line["correct"], line["checks"]
-    want = {n for n, (cells, _, _) in READERS.items() if cell in cells}
+    want = {m["name"] for m in bench["per_layer"]
+            if names[cell] in m["workloads"] and m["name"] in READERS}
     assert want <= set(line["metrics"])
     for n in want:
         assert line["metrics"][n]["value"] > 0, n
-    if cell.startswith("serve10k"):
-        # the tiny database takes one files step a request
-        assert line["metrics"]["files_steps.serve"]["value"] == 1.0
+    if "files_steps.serve" in want:
+        # the tiny database takes one files step a request and shard
+        chips = line["device"]["count"]
+        assert line["metrics"]["files_steps.serve"]["value"] == chips

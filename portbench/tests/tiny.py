@@ -1,5 +1,10 @@
 """Tiny copies of the benchmark's cells, for runs on the CPU: the same
-drivers, references and metric readers, at sizes a test can hold."""
+drivers, references and metric readers, at sizes a test can hold.
+
+Every cell of ``BENCHMARK.json`` gets a stand-in from its own files: the
+``tiny`` group of its configuration and of its traffic mix holds the keys
+that replace theirs.  A cell whose files lack the group has no stand-in;
+``MISSING`` names it, and one test fails for it."""
 
 from __future__ import annotations
 
@@ -10,11 +15,7 @@ import shutil
 
 from portbench import harness
 
-#: each benchmark cell → its tiny stand-in (configuration, traffic)
-CELLS = {"serve10k.punch": ("tiny_db", "tiny_punch"),
-         "serve10k.query": ("tiny_db", "tiny_query"),
-         "slice20.extract": ("tiny_folder", "tiny_extract"),
-         "slice20.correlate": ("tiny_folder", "tiny_correlate")}
+ROOT = os.path.dirname(harness.BASE)
 
 
 def _load(base, *parts):
@@ -27,53 +28,67 @@ def _dump(base, obj, *parts):
         json.dump(obj, f)
 
 
-def make(tmp: str):
-    """A copy of ``portbench/`` under ``tmp`` holding tiny configurations
-    and mixes beside the real ones, and a benchmark spec whose cells are
-    the tiny ones under the real cells' metrics.  Returns ``(base,
-    bench, names)`` with ``names`` mapping real cell → tiny cell name."""
-    base = os.path.join(tmp, "portbench")
-    shutil.copytree(harness.BASE, base,
-                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    db = _load(base, "configs", "serve10k.json")
-    db.update(files=40, frames=3000)
-    _dump(base, db, "configs", "tiny_db.json")
-    folder = _load(base, "configs", "slice20.json")
-    # long enough for the real search's 10 s punch-in, 5 s punch-out and
-    # 12-20 s punches, whose limits hold at this size too
-    folder.update(files=3, seconds=40, planted={
-        "in_s": [5.0, 15.0], "out_s": [25.0, 30.0], "shift_in": 400,
-        "shift_out": 200, "margin": 1024})
-    _dump(base, folder, "configs", "tiny_folder.json")
-    for name in ("punch", "query"):
-        mix = _load(base, "workloads", f"{name}.json")
-        mix.update(in_frames=100, out_frames=50, min_punch=120, max_punch=180,
-                   pool=64, warmup=1, sample=2, reference_block=16,
-                   profile_units=2)
-        _dump(base, mix, "workloads", f"tiny_{name}.json")
-    mix = _load(base, "workloads", "correlate.json")
-    mix.update(num_matches=3, pool=16, profile_units=2)
-    _dump(base, mix, "workloads", "tiny_correlate.json")
-    mix = _load(base, "workloads", "extract.json")
-    mix.update(profile_units=1)
-    _dump(base, mix, "workloads", "tiny_extract.json")
+def _spec(root: str = ROOT) -> dict:
+    return _load(root, "BENCHMARK.json")
 
-    bench = copy.deepcopy(_load(os.path.dirname(harness.BASE),
-                                "BENCHMARK.json"))
-    names = {real: f"{c}.{t}" for real, (c, t) in CELLS.items()}
+
+def stand_in(cell: dict) -> str:
+    """The tiny stand-in's name of a real cell."""
+    return "tiny_" + cell["name"]
+
+
+def _has_tiny(base: str, cell: dict) -> bool:
+    return ("tiny" in _load(base, "configs", f"{cell['config']}.json")
+            and "tiny" in _load(base, "workloads", f"{cell['traffic']}.json"))
+
+
+def _cells(root: str = ROOT):
+    """``({real cell: stand-in}, [cells whose files lack a tiny group])``."""
+    base = os.path.join(root, "portbench")
+    have, missing = {}, []
+    for w in _spec(root)["workloads"]:
+        if _has_tiny(base, w):
+            have[w["name"]] = stand_in(w)
+        else:
+            missing.append(w["name"])
+    return have, missing
+
+
+#: each benchmark cell with a tiny stand-in → the stand-in's name
+CELLS, MISSING = _cells()
+
+
+def make(tmp: str, root: str = ROOT):
+    """A copy of ``portbench/`` under ``tmp`` holding the tiny
+    configurations and mixes (``tiny_<name>.json``) beside the real ones,
+    and a benchmark spec whose cells are the stand-ins, each on the real
+    cell's chips and under the real cell's metrics.  Returns ``(base,
+    bench, names)`` with ``names`` mapping real cell → stand-in."""
+    base = os.path.join(tmp, "portbench")
+    shutil.copytree(os.path.join(root, "portbench"), base,
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    bench = copy.deepcopy(_spec(root))
+    cells = [w for w in bench["workloads"] if _has_tiny(base, w)]
+    for kind, key in (("configs", "config"), ("workloads", "traffic")):
+        for name in {w[key] for w in cells}:
+            part = _load(base, kind, f"{name}.json")
+            part.update(part.pop("tiny"))
+            _dump(base, part, kind, f"tiny_{name}.json")
+    names = {w["name"]: stand_in(w) for w in cells}
     bench["workloads"] = [
-        {"name": names[w["name"]], "config": CELLS[w["name"]][0],
-         "traffic": CELLS[w["name"]][1], "chips": 1, "why": w["why"]}
-        for w in bench["workloads"]]
+        dict(w, name=names[w["name"]], config="tiny_" + w["config"],
+             traffic="tiny_" + w["traffic"]) for w in cells]
     for kind in ("end_to_end", "per_layer"):
         for m in bench[kind]:
             if "workloads" in m:
-                m["workloads"] = [names[w] for w in m["workloads"]]
+                m["workloads"] = [names[w] for w in m["workloads"]
+                                  if w in names]
     return base, bench, names
 
 
 def run(base, bench, cell, seed=2**31 + 7, seconds=0.3, trace=False,
-        variant=None):
+        variant=None, devices=None):
     import time
     return harness.run_cell(bench, cell, seed, seconds, trace, "cpu",
-                            time.perf_counter(), variant=variant, base=base)
+                            time.perf_counter(), variant=variant, base=base,
+                            devices=devices)

@@ -27,6 +27,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from portbench import harness
+
 __all__ = ["setup", "unit", "facts", "release", "check", "close"]
 
 
@@ -91,16 +93,25 @@ def setup(ctx):
         call_kw = dict(cfg["control"]["call"])
     arrays = feats.numpy()
     entries = [(f"f{i:05d}.aif", arrays[i]) for i in range(len(arrays))]
-    db = FeatureDatabase(entries, norm, device=ctx.device, **kw)
+    db = FeatureDatabase(entries, norm, device=ctx.device,
+                         mesh=_mesh(ctx), **kw)
     state = SimpleNamespace(ctx=ctx, feats=feats, arrays=arrays, norm=norm,
                             db=db, pool=_pool(cfg, mix, ctx.seed),
                             call_kw=call_kw)
     warm = [state.pool[-1 - w] for w in range(mix["warmup"])]
     for row in warm:
         _call(state, row)
-    if ctx.device.startswith("cuda"):
-        torch.cuda.synchronize()
+    for d in harness.cards(ctx.devices):
+        torch.cuda.synchronize(d)
     return state
+
+
+def _mesh(ctx):
+    """A files mesh over the cell's cards, one shard a card; None on one."""
+    if len(ctx.devices) < 2:
+        return None
+    from strugatzki_tpu_torch.parallel.sweep import make_files_mesh
+    return make_files_mesh(ctx.devices)
 
 
 def _call(state, row):
@@ -132,8 +143,9 @@ def facts(state) -> dict:
 
 def release(state) -> None:
     state.db = None
-    if state.ctx.device.startswith("cuda"):
-        torch.cuda.empty_cache()
+    for d in harness.cards(state.ctx.devices):
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
 
 
 def close(state) -> None:
@@ -158,7 +170,10 @@ def _planted_missed(state, outputs) -> int:
 
 
 def check(state, outputs, ctx):
-    """``[(name, value, limit)]`` of the run's outputs."""
+    """``[(name, value, limit)]`` of the run's outputs.  The reference's
+    blocks of files go round the cell's cards in turn, and each card keeps
+    its own running maxima, read back once at the end: the cards work on
+    their blocks at the same time."""
     from portbench.reference import serve as R
 
     cfg, mix = ctx.config, ctx.mix
@@ -168,62 +183,57 @@ def check(state, outputs, ctx):
     sample = sorted(rng.choice(done, min(mix["sample"], len(done)),
                                replace=False)) if done else []
     punch = mix["call"] == "query_punch"
-    dev = torch.device(ctx.device)
-    norm = torch.as_tensor(state.norm, dtype=torch.float64, device=dev)
     T, k = cfg["frames"], mix["k"]
     L_in, L_out = mix["in_frames"], mix["out_frames"]
     mp, xp = mix["min_punch"], mix["max_punch"]
     w, mb = mix["temp_weight"], mix["max_boost"]
-    sim_err = gap = boost_err = 0.0
-    tmpls = {}
-    for i in sample:
-        f, a, j = (int(v) for v in state.pool[i % len(state.pool)])
-        x = torch.as_tensor(state.arrays[f], dtype=torch.float64, device=dev)
-        x = R.normalise(x, norm)
-        o = a + mp + j
-        tmpls[i] = (x[:, a:a + L_in], x[:, o:o + L_out])
+    cards = {d: _Card(state, torch.device(d), sample, mix)
+             for d in dict.fromkeys(ctx.devices)}
     block = mix["reference_block"]
-    for b0 in range(0, cfg["files"], block):
+    for n, b0 in enumerate(range(0, cfg["files"], block)):
+        card = cards[ctx.devices[n % len(ctx.devices)]]
+        dev, norm, tmpls = card.dev, card.norm, card.tmpls
         rows = slice(b0, min(b0 + block, cfg["files"]))
-        x = torch.as_tensor(state.arrays[rows], dtype=torch.float64,
-                            device=dev)
+        # every upload first: each waits for the card's queue, and the
+        # traces after them are queued without a wait.  The block goes up
+        # from the page-locked features in float32 and widens on the card:
+        # the same numbers, half the bytes and no host conversion
+        x = state.feats[rows].to(dev).double()
+        served = {i: _served(outputs[i], rows, dev, punch) for i in sample}
         spec = R.Spectra(R.normalise(x, norm))
         for i in sample:
-            res = outputs[i]
+            got = served[i]
             s_in, b_in = spec.trace(tmpls[i][0], w, mb)
-            frames = torch.as_tensor(res.frames[rows], device=dev).long()
-            served = torch.as_tensor(res.sims[rows], dtype=torch.float64,
-                                     device=dev)
+            frames, sims = got["frames"], got["sims"]
             if punch:
                 s_out, b_out = spec.trace(tmpls[i][1], w, mb)
                 top = R.punch_topk(R.band_best(s_in, s_out, T, L_in, L_out,
                                                mp, xp), k)
-                outs = frames + mp + torch.as_tensor(
-                    res.punch_lens[rows], device=dev).long()
+                outs = frames + mp + got["punch_lens"]
                 si = s_in.gather(1, frames)
                 so = s_out.gather(1, outs.clamp(max=s_out.shape[1] - 1))
                 ok = (si > 0) & (so > 0) & (outs < T - L_out + 1)
                 at = torch.where(ok, torch.sqrt(torch.clamp_min(si * so, 0)),
                                  torch.full_like(si, -math.inf))
-                boosts = [(res.boosts_in[rows], b_in.gather(1, frames)),
-                          (res.boosts_out[rows], b_out.gather(
+                boosts = [(got["boosts_in"], b_in.gather(1, frames)),
+                          (got["boosts_out"], b_out.gather(
                               1, outs.clamp(max=b_out.shape[1] - 1)))]
+                # on the scale of the product in · out: a square root near
+                # 0 would magnify rounding without bound
+                sims, at, top = (torch.where(torch.isfinite(v), v * v, v)
+                                 for v in (sims, at, top))
             else:
                 top = R.query_topk(s_in, T, L_in, k)
                 at = s_in.gather(1, frames)
-                boosts = [(res.boosts[rows], b_in.gather(1, frames))]
-            if punch:
-                # on the scale of the product in · out: a square root near
-                # 0 would magnify rounding without bound
-                served, at, top = (torch.where(torch.isfinite(v), v * v, v)
-                                   for v in (served, at, top))
-            sim_err = max(sim_err, _max_abs(served, at))
-            gap = max(gap, _max_gap(top, at))
-            for got, ref in boosts:
-                got = torch.as_tensor(got, dtype=torch.float64, device=dev)
-                boost_err = max(boost_err, float(
-                    ((got - ref).abs() / ref.abs()).max()))
-        del spec, x
+                boosts = [(got["boosts"], b_in.gather(1, frames))]
+            card.keep(0, _max_abs(sims, at))
+            if top.numel():
+                card.keep(1, _max_gap(top, at))
+            for b, ref in boosts:
+                card.keep(2, ((b - ref).abs() / ref.abs()).amax())
+        del spec, x, served
+    sim_err, gap, boost_err = torch.stack(
+        [c.maxima.cpu() for c in cards.values()]).amax(0).tolist()
     return [("planted_missed", float(_planted_missed(state, outputs)),
              lim["planted_missed"]),
             ("sim_err", sim_err, lim["sim_err"]),
@@ -231,21 +241,64 @@ def check(state, outputs, ctx):
             ("boost_err", boost_err, lim["boost_err"])]
 
 
-def _max_abs(served, ref) -> float:
-    """Largest |served − reference| where either is finite; inf where one
-    is finite and the other not."""
+class _Card:
+    """One card's part of the check: the norm rows, each sampled
+    request's templates, normalised and prepared there, and its running
+    maxima of ``sim_err``, ``rank_gap`` and ``boost_err``."""
+
+    def __init__(self, state, dev, sample, mix) -> None:
+        from portbench.reference import serve as R
+
+        self.dev = dev
+        self.norm = torch.as_tensor(state.norm, dtype=torch.float64,
+                                    device=dev)
+        L_in, L_out = mix["in_frames"], mix["out_frames"]
+        self.tmpls = {}
+        for i in sample:
+            f, a, j = (int(v) for v in state.pool[i % len(state.pool)])
+            x = torch.as_tensor(state.arrays[f], dtype=torch.float64,
+                                device=dev)
+            x = R.normalise(x, self.norm)
+            o = a + mix["min_punch"] + j
+            out = R.Template(x[:, o:o + L_out]) \
+                if mix["call"] == "query_punch" else None
+            self.tmpls[i] = (R.Template(x[:, a:a + L_in]), out)
+        self.maxima = torch.zeros(3, dtype=torch.float64, device=dev)
+
+    def keep(self, slot: int, value: torch.Tensor) -> None:
+        """The running maximum of ``slot``; a NaN reading leaves it as it
+        was, as Python's ``max`` over the readings would."""
+        self.maxima[slot] = torch.fmax(self.maxima[slot], value)
+
+
+def _served(res, rows, dev, punch: bool) -> dict:
+    """A request's served results for ``rows`` of files, on ``dev``."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    got = {"frames": torch.as_tensor(res.frames[rows], device=dev).long(),
+           "sims": torch.as_tensor(res.sims[rows], **f64)}
+    if punch:
+        got["punch_lens"] = torch.as_tensor(res.punch_lens[rows],
+                                            device=dev).long()
+        got["boosts_in"] = torch.as_tensor(res.boosts_in[rows], **f64)
+        got["boosts_out"] = torch.as_tensor(res.boosts_out[rows], **f64)
+    else:
+        got["boosts"] = torch.as_tensor(res.boosts[rows], **f64)
+    return got
+
+
+def _max_abs(served, ref) -> torch.Tensor:
+    """Largest |served − reference| where both are finite (0 where none
+    is); inf where one is finite and the other not."""
     both = torch.isfinite(served) & torch.isfinite(ref)
     one = torch.isfinite(served) ^ torch.isfinite(ref)
-    if bool(one.any()):
-        return math.inf
-    return float((served - ref).abs()[both].max()) if bool(both.any()) \
-        else 0.0
+    d = torch.where(both, (served - ref).abs(), torch.zeros_like(served))
+    return torch.where(one.any(), torch.full_like(d[0, 0], math.inf),
+                       d.amax())
 
 
-def _max_gap(top, at) -> float:
+def _max_gap(top, at) -> torch.Tensor:
     """Largest amount by which the served candidate of a rank lies below
     the reference's candidate of that rank (0 where both are −inf)."""
     d = torch.where(torch.isinf(top) & torch.isinf(at) & (top == at),
                     torch.zeros_like(top), top - at)
-    return float(d.max()) if d.numel() else 0.0
-
+    return d.amax()
