@@ -7,9 +7,10 @@ Run from the repository root on a machine with an NVIDIA Hopper card.  It
 drives the README quick start through the port (``strugatzki_tpu_torch``):
 
 1. device: the card's name and power limit, and the full-f32 matmul settings;
-2. build: ``csrc/prep.cu`` (the prep kernel ``prep_long``) and
-   ``csrc/band.cu`` (the punch's band maximum ``band_max_kernel``) with nvcc
-   for sm_90a;
+2. build: ``csrc/prep.cu`` (the prep kernel ``prep_long``),
+   ``csrc/band.cu`` (the punch's band maximum ``band_max_kernel``) and
+   ``csrc/trace.cu`` (a files step's traces, ``trace_spectra_kernel`` and
+   ``trace_epilogue_kernel``) with nvcc for sm_90a;
 3. kernel: ``prep_long``, one persistent launch over a queue of row tiles,
    against its plain PyTorch version on the card, compared there: at a
    ``-c`` chunk ``[32, 14, 11925]`` (an odd ``T``; once more with NaN and
@@ -33,7 +34,18 @@ drives the README quick start through the port (``strugatzki_tpu_torch``):
    S 690, and S 26,000), and on the wide path (bands of 30,000 frames
    and more at ``Tp`` 80,000, the levels through a global scratch, ``j_sel
    + 2`` launches); timed warm and cold at the step beside its bound (both traces read
-   once, both results written once) and the plain version's time;
+   once, both results written once) and the plain version's time.  The
+   trace kernels against their plain versions on the card at the serving
+   cells' files steps (a ``serve10k`` punch ``[455, 14, 8193]`` and query
+   ``[910, 14, 8193]``, a ``serve107k`` punch ``[227, 14, 16385]``, the
+   compact cache's punch ``[369, 14, 8193]`` with window-sum tables), at
+   ``nt`` 2 and with blend weights 0 and 1, on files with a constant
+   temporal group, a quiet stretch and negative loudness: the rows within
+   1e-6 of each row's largest bin, the epilogue bit for bit on the same
+   rows, a whole group (one launch of each) against the plain
+   per-template traces within 2e-6; each kernel timed (cold: its inputs exceed the L2) beside
+   its bound and its plain version, with the irfft, the group against the
+   plain traces and the peak memory of each;
 4. slice: 20 PCM16 files of 120 s plus a query, written from the seed;
    ``-f`` over the folder, ``--stats``, and a punch-in/punch-out search
    (``FeatureCorrelation``, temporal weight 0.5, 12-20 s, top 10) on CUDA.
@@ -59,7 +71,9 @@ drives the README quick start through the port (``strugatzki_tpu_torch``):
    memory of staging and of the queries, and a profile of one warm
    ``query`` and ``query_punch``; one ``query_punch`` must launch
    ``band_max_kernel`` once a files step and ``query_punch_batch`` of 8
-   pairs eight times a step, never the plain version; then it stages the
+   pairs eight times a step, never the plain version, and each trace
+   kernel once a trace group and step (a ``query``'s template, each
+   pair); then it stages the
    same files without the spectra cache and times ``query`` and
    ``query_punch`` again (again once a step).
    modes: the database's capacity modes.  The canary with the compact
@@ -118,7 +132,9 @@ mesh must launch ``prep_long`` and never the plain version; the analyses
 (``-s``, ``-x``, ``-y``) prepare on the host and must not reach the plain
 version.  The band counters are read the same way around each punch path
 it drives (a cache mode, the batch, the mesh), beside the files steps the
-recorder counts.
+recorder counts, and the trace counters around every path: each trace
+kernel, on its own counter, once a trace group and step or ``-c`` chunk,
+the plain traces never.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit from nvidia-smi, and the
@@ -698,6 +714,256 @@ def band_phase(seed: int, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the trace kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+#: (label, files, channels, padded width, template lengths, blend weights,
+#: num_temporal, the compact cache's window-sum table): the cells' files
+#: steps (``_files_step`` at two traces a file for a punch, one for a
+#: query; the compact cache's punch step), then ``nt`` 2 and the zero-weight
+#: groups at the punch step
+TRACE_STEPS = [
+    ("serve10k punch step", 455, 14, 10_752, (861, 431), (0.5, 0.5),
+     1, False),
+    ("serve10k query step", 910, 14, 10_752, (861,), (0.5,), 1, False),
+    ("serve107k punch step", 227, 14, 24_064, (861, 431), (0.5, 0.5),
+     1, False),
+    ("compact punch step", 369, 14, 10_752, (861, 431), (0.5, 0.5),
+     1, True),
+    ("punch step, nt 2", 455, 14, 10_752, (861, 431), (0.5, 0.5), 2,
+     False),
+    ("compact punch step, nt 2, weights 0 and 1", 369, 14, 10_752,
+     (861, 431), (0.0, 1.0), 2, True),
+]
+#: the kernels' traces against the plain version's on the card: the rows
+#: differ in the order of the channel sums, so the sims carry that
+#: round-off through one inverse FFT and the window statistics
+TRACE_SIM_TOL, TRACE_BOOST_RTOL = 2e-6, 2e-6
+
+
+def _trace_step(g, B, C, T, lengths, weights, nt, sums):
+    """A files step on the card: features made from ``g`` and shifted per
+    group (file 0's temporal group constant, file 1 quiet for a stretch,
+    file 2's loudness negative for a stretch), their spectra as the cache
+    holds them, and templates of ``lengths`` cut from file 3 → ``(X, aux,
+    shifts, templates)``."""
+    import torch
+
+    from strugatzki_tpu_torch.analysis.correlation import InputTemplate
+    from strugatzki_tpu_torch.kernels import corr as K
+
+    x = torch.empty((B, C, T), device="cuda")
+    x[:, 0].uniform_(0.05, 0.6, generator=g)
+    x[:, 1:].normal_(0.5, 0.1, generator=g)
+    x[0, :nt] = 0.4
+    x[1, 0, 2000:3000] *= 1e-3
+    x[2, 0, 4000:4600] = -0.3
+    blocks = [x[3, :, 500 + 700 * i:500 + 700 * i + L].cpu().numpy().copy()
+              for i, L in enumerate(lengths)]
+    t_mean = x[:, :nt].double().mean(dim=(1, 2))
+    s_mean = x[:, nt:].double().mean(dim=(1, 2))
+    x[:, :nt] = (x[:, :nt].double() - t_mean[:, None, None]).float()
+    x[:, nt:] = (x[:, nt:].double() - s_mean[:, None, None]).float()
+    shifts = t_mean.float()
+    if sums:
+        X, aux = K.forward_spectra(x), K.window_sum_table(x, nt)
+    else:
+        X, aux = K.trace_spectra(x, num_temporal=nt)
+    n = K._fft_len(T)
+    templates = [InputTemplate(b, nt).trace_template("cuda", n, w)
+                 for b, w in zip(blocks, weights)]
+    del x
+    return X, aux, shifts, templates
+
+
+def _trace_errors(got, want):
+    """Kernel against plain traces: NaN boosts and the boost gate at the
+    same windows; the largest |sim error| where both sims are finite; the
+    largest relative boost error where the boost passes the gate (as the
+    serving checks compare it: past the gate a window's loudness mean is
+    tiny, and an FFT window sum's round-off is large against it)."""
+    import torch
+
+    s_err = b_err = 0.0
+    for (gs, gb), (ws, wb) in zip(got, want):
+        require(torch.equal(gb.isnan(), wb.isnan()), "boost NaN positions")
+        require(torch.equal(gb <= 8.0, wb <= 8.0), "boost gate")
+        require(torch.equal(gs.isfinite(), ws.isfinite()),
+                "finite sim positions")
+        fin = ws.isfinite()
+        s_err = max(s_err, float(torch.where(fin, (gs - ws).abs(), 0).max()))
+        ok = wb <= 8.0
+        b_err = max(b_err, float(torch.where(
+            ok, (gb - wb).abs() / wb.abs(), 0).max()))
+    return s_err, b_err
+
+
+def trace_bound_ms(B, C, F, plan, sums: bool):
+    """The least times of the two kernels at a step: the bytes each must
+    move over the memory rate.  Spectra kernel: ``X`` (and ``Xsq`` off the
+    sums path) and the template spectra read once, the rows written once.
+    Epilogue: each template's window-sum rows (or the table, once) and dot
+    rows read over its ``W`` windows, the shifts, and its two traces
+    written."""
+    G = len(plan.lengths)
+    rows_b = (B * C * F + (0 if sums else B * 2 * F) + G * C * F
+              + len(plan.ones) * F + B * plan.rows * F) * 8
+    epi_b = B * 4 + (B * plan.n_sum * (plan.t_padded + 1) * 4 if sums else 0)
+    for L, (r_t, r_s) in zip(plan.lengths, plan.dots):
+        W = plan.t_padded - L + 1
+        reads = (r_t >= 0) + (r_s >= 0) + (0 if sums else plan.n_sum)
+        epi_b += B * W * 4 * (reads + 2)
+    return rows_b / HBM_BYTES_PER_S * 1e3, epi_b / HBM_BYTES_PER_S * 1e3
+
+
+def trace_phase(seed: int, card: str):
+    """``trace_spectra_kernel`` and ``trace_epilogue_kernel`` against their
+    plain versions on the card at each of ``TRACE_STEPS``: the rows within
+    1e-6 of each row's largest bin; the epilogue on the same real rows bit
+    for bit; the whole group (two launches, one irfft) against the plain
+    per-template traces within TRACE_SIM_TOL / TRACE_BOOST_RTOL, NaN and
+    gate positions equal.  Times at the cells' steps: each kernel (its
+    inputs exceed the L2, so every call is cold) beside its bound and its
+    plain version, the irfft, the whole group and the plain traces, and
+    the peak memory of a group against the plain traces'.  Returns the two
+    kernels' entries of the ``kernels`` line."""
+    import torch
+
+    from strugatzki_tpu_torch.kernels import corr as K
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    entries = {}
+    for label, B, C, T, lengths, weights, nt, sums in TRACE_STEPS:
+        X, aux, shifts, templates = _trace_step(g, B, C, T, lengths, weights,
+                                                nt, sums)
+        F = X.shape[-1]
+        plan = K.trace_plan(T, lengths, weights, sums, nt)
+        spectra = [t.spectrum for t in templates]
+        xsq = None if sums else aux
+        table = aux if sums else None
+        rows = K.trace_rows_cuda(X, xsq, spectra, plan, nt)
+        ref = K.trace_rows_reference(X, xsq, spectra, plan, nt)
+        # (a row of zeros, file 0's constant temporal group, stays zero)
+        scale = ref.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+        row_err = float(((rows - ref).abs() / scale).max())
+        require(row_err <= 1e-6, f"{label}: rows differ by {row_err:.3e} of "
+                "their largest bin")
+        del rows
+        # the kernel takes the unscaled transform and scales by the exact
+        # 1/N itself; the plain version the scaled one
+        Y = torch.fft.irfft(ref, n=plan.n_fft, norm="forward")
+        scaled = torch.fft.irfft(ref, n=plan.n_fft)
+        require(torch.equal(scaled, Y * (1.0 / plan.n_fft)),
+                f"{label}: the scaled inverse FFT is not the unscaled one "
+                "times 1/N")
+        del ref
+        got = K.trace_epilogue_cuda(Y, table, plan, templates, shifts, 8.0,
+                                    C, nt)
+        want = K.trace_epilogue_reference(scaled, table, plan, templates,
+                                          shifts, 8.0, C, nt)
+        diff = sum(int((~_bits_equal(a, b)).sum())
+                   for pair in zip(got, want) for a, b in zip(*pair))
+        require(diff == 0, f"{label}: the epilogue differs from the plain "
+                f"version at {diff} values")
+        del Y, scaled, got, want
+        k0 = (K.SPECTRA_LAUNCHES, K.EPILOGUE_LAUNCHES)
+        got = K.correlation_traces(X, aux, sums, T, templates, shifts, 8.0,
+                                   nt)
+        k1 = (K.SPECTRA_LAUNCHES - k0[0], K.EPILOGUE_LAUNCHES - k0[1])
+        require(k1 == (1, 1), f"{label}: {k1} launches of "
+                "(trace_spectra_kernel, trace_epilogue_kernel) for one "
+                "trace group")
+        fn = (K.correlation_trace_from_sums if sums
+              else K.correlation_trace_from_spectra)
+
+        def plain():
+            return [fn(X, aux, T, t.temporal, t.spectral, t.std_t, t.std_s,
+                       t.ln_avg_loud, shifts, t.temp_weight, 8.0,
+                       num_temporal=nt) for t in templates]
+
+        s_err, b_err = _trace_errors(got, plain())
+        require(s_err <= TRACE_SIM_TOL and b_err <= TRACE_BOOST_RTOL,
+                f"{label}: sims differ by {s_err:.3e}, boosts by {b_err:.3e}")
+        del got
+        print(f"kernel: trace kernels, {label} [{B}, {C}, {F}], L {lengths},"
+              f" weights {weights}, nt {nt}{', window-sum table' if sums else ''}"
+              f" ({plan.rows} rows a file): rows within {row_err:.3e} of "
+              f"their largest bin; epilogue equal bit for bit; the group "
+              f"against the plain traces: sims max |err| {s_err:.3e} "
+              f"({TRACE_SIM_TOL}), boosts max rel err {b_err:.3e} "
+              f"({TRACE_BOOST_RTOL})")
+        if label.startswith(("serve", "compact punch step")) and nt == 1:
+            timed = _time_trace(label, X, aux, xsq, table, shifts, templates,
+                                plan, sums, nt, plain, card)
+            for e in timed.values():
+                e["err"] = s_err
+            entries.update(timed)
+        del X, aux, shifts, templates, xsq, table
+        torch.cuda.empty_cache()
+    return entries
+
+
+def _time_trace(label, X, aux, xsq, table, shifts, templates, plan, sums,
+                nt, plain, card):
+    """Times and peak memory of a trace group at one step (see
+    :func:`trace_phase`); returns the kernels' entries at the serve10k
+    punch step, else {}."""
+    import torch
+
+    from strugatzki_tpu_torch.kernels import corr as K
+
+    B, C, F = X.shape
+    spectra = [t.spectrum for t in templates]
+    rows = K.trace_rows_cuda(X, xsq, spectra, plan, nt)
+    Y = torch.fft.irfft(rows, n=plan.n_fft, norm="forward")
+    t_rows = cuda_ms(lambda: K.trace_rows_cuda(X, xsq, spectra, plan, nt), 20)
+    t_fft = cuda_ms(lambda: torch.fft.irfft(rows, n=plan.n_fft,
+                                            norm="forward"), 20)
+    t_epi = cuda_ms(lambda: K.trace_epilogue_cuda(
+        Y, table, plan, templates, shifts, 8.0, C, nt), 20)
+    p_rows = cuda_ms(lambda: K.trace_rows_reference(X, xsq, spectra, plan,
+                                                    nt), 5)
+    Y = Y * (1.0 / plan.n_fft)
+    p_epi = cuda_ms(lambda: K.trace_epilogue_reference(
+        Y, table, plan, templates, shifts, 8.0, C, nt), 5)
+    del rows, Y
+    group = [cuda_ms(lambda: K.correlation_traces(
+        X, aux, sums, plan.t_padded, templates, shifts, 8.0, nt), 20)
+        for _ in range(2)]
+    old = [cuda_ms(plain, 5) for _ in range(2)]
+    peaks = []
+    for fn in (lambda: K.correlation_traces(X, aux, sums, plan.t_padded,
+                                            templates, shifts, 8.0, nt),
+               plain):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        peaks.append((torch.cuda.max_memory_allocated() - base) / 1e9)
+        del out
+    b_rows, b_epi = trace_bound_ms(B, C, F, plan, sums)
+    print(f"kernel: trace kernels at the {label} [{B}, {C}, {F}], "
+          f"{plan.rows} rows a file (inputs beyond the 50 MB L2: cold): "
+          f"trace_spectra_kernel {t_rows:.4f} ms, bound {b_rows:.4f} ms "
+          f"({b_rows / t_rows:.1%}), plain version {p_rows:.4f} ms; unscaled "
+          f"irfft of "
+          f"{B * plan.rows} rows {t_fft:.4f} ms; trace_epilogue_kernel "
+          f"{t_epi:.4f} ms, bound {b_epi:.4f} ms ({b_epi / t_epi:.1%}), "
+          f"plain version {p_epi:.4f} ms; the group {group[0]:.4f} / "
+          f"{group[1]:.4f} ms against the plain traces {old[0]:.4f} / "
+          f"{old[1]:.4f} ms; transient peak {peaks[0]:.3f} GB against "
+          f"{peaks[1]:.3f} GB; on {card}")
+    if label != "serve10k punch step":
+        return {}
+    shape = [B, C, F, plan.rows]
+    return {"trace_spectra_kernel": {"ms": t_rows, "plain_ms": p_rows,
+                                     "bound_ms": b_rows, "shape": shape},
+            "trace_epilogue_kernel": {"ms": t_epi, "plain_ms": p_epi,
+                                      "bound_ms": b_epi, "shape": shape}}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the slice
 # ---------------------------------------------------------------------------
 
@@ -863,6 +1129,8 @@ def cpu_checks(snd: str, db: str, target: str) -> None:
 
 
 def slice_phase(seed: int, card: str) -> Counter:
+    from strugatzki_tpu_torch.analysis.correlation import CHUNK_SIZE
+
     with tempfile.TemporaryDirectory(prefix="strugatzki_smoke_") as tmp:
         snd, db = os.path.join(tmp, "snd"), os.path.join(tmp, "db")
         os.makedirs(snd)
@@ -872,6 +1140,12 @@ def slice_phase(seed: int, card: str) -> Counter:
         (matches, t_f, t_c), launches = counted(
             "-f, --stats and -c", lambda: run_slice(snd, db), "slice")
         check_matches(matches, target, start, stop)
+        # the punch-in and the punch-out trace of each 32-file chunk
+        chunks = -(-DB_FILES // CHUNK_SIZE)
+        require(launches["trace_spectra_kernel"] == 2 * chunks
+                and launches["trace_epilogue_kernel"] == 2 * chunks,
+                f"-c: each trace kernel's launches are not one a trace group "
+                f"and chunk ({chunks} chunk(s), two groups each)")
         audio_s = (DB_FILES + 1) * SECONDS
         print(f"slice: -f {audio_s} s of audio in {t_f:.3f} s = "
               f"{audio_s / t_f:.1f}x realtime; -c over {DB_FILES} files in "
@@ -902,20 +1176,48 @@ LONG_DB = 65
 
 
 def counted(label: str, fn, phase: str = "database"):
-    """Run ``fn`` with the prep counters set to 0 just before and read just
-    after; the path must have launched ``prep_long`` and never the plain
-    version.  Returns ``(fn's result, Counter of launches by kernel)``."""
-    from strugatzki_tpu_torch.kernels import prep
+    """Run ``fn`` with the prep and trace counters set to 0 just before and
+    read just after; the path must have launched ``prep_long`` and never
+    the plain versions.  Returns ``(fn's result, Counter of launches by
+    kernel)``."""
+    from strugatzki_tpu_torch.kernels import corr, prep
 
     prep.KERNEL_LAUNCHES = prep.REFERENCE_CALLS = 0
+    _reset_trace_counters()
     out = fn()
-    launches = Counter(prep_long=prep.KERNEL_LAUNCHES)
+    launches = Counter(prep_long=prep.KERNEL_LAUNCHES,
+                       **_trace_launches())
     refs = prep.REFERENCE_CALLS
     print(f"{phase}: {label}: prep_long launches {launches['prep_long']}, "
-          f"plain-version calls {refs}")
+          f"plain-version calls {refs}; trace_spectra_kernel launches "
+          f"{launches['trace_spectra_kernel']}, trace_epilogue_kernel "
+          f"launches {launches['trace_epilogue_kernel']}, plain traces "
+          f"{corr.REFERENCE_CALLS}")
     require(launches["prep_long"] > 0, f"{label} never launched prep_long")
     require(refs == 0, f"{label} reached the plain version on CUDA")
+    require(corr.REFERENCE_CALLS == 0,
+            f"{label} reached the plain traces on CUDA")
     return out, launches
+
+
+def _reset_trace_counters() -> None:
+    from strugatzki_tpu_torch.kernels import corr
+
+    corr.KERNEL_LAUNCHES = corr.REFERENCE_CALLS = 0
+    corr.SPECTRA_LAUNCHES = corr.EPILOGUE_LAUNCHES = 0
+
+
+def _trace_launches() -> dict:
+    """Each trace kernel's launches since :func:`_reset_trace_counters`,
+    from its own counter; their sum must be the total counter's."""
+    from strugatzki_tpu_torch.kernels import corr
+
+    n = {"trace_spectra_kernel": corr.SPECTRA_LAUNCHES,
+         "trace_epilogue_kernel": corr.EPILOGUE_LAUNCHES}
+    require(sum(n.values()) == corr.KERNEL_LAUNCHES,
+            f"trace kernel launches {n} do not add up to "
+            f"{corr.KERNEL_LAUNCHES}")
+    return n
 
 
 def _decided(s, tol=SIM_TOL):
@@ -1328,15 +1630,18 @@ def _scale_set(seed: int, phase: str = "database"):
 SCALE_RESULTS: dict = {}
 
 
-def band_counted(phase: str, label: str, fn, per_step: int = 1) -> Counter:
-    """Run the punch call ``fn`` with the band counters set to 0 just before
-    and read just after, and the recorder on at DEBUG (its lines held back)
-    to count the files steps: ``band_max_kernel`` must launch ``per_step``
-    times a step (once a pair of a batch) and the plain version never.
-    Returns a Counter of the launches."""
+def band_counted(phase: str, label: str, fn, per_step: int = 1,
+                 punch: bool = True) -> Counter:
+    """Run the serving call ``fn`` with the band and trace counters set to
+    0 just before and read just after, and the recorder on at DEBUG (its
+    lines held back) to count the files steps: the trace kernels must
+    launch twice a trace group and step (``per_step`` groups: a punch pair
+    or a query template each), ``band_max_kernel`` once a pair and step of
+    a punch (never for a query), and the plain versions never.  Returns a
+    Counter of the launches."""
     import logging
 
-    from strugatzki_tpu_torch.kernels import band
+    from strugatzki_tpu_torch.kernels import band, corr
     from strugatzki_tpu_torch.runtime import logging as slog
 
     level = slog.logger.level
@@ -1346,6 +1651,7 @@ def band_counted(phase: str, label: str, fn, per_step: int = 1) -> Counter:
         h.setLevel(logging.INFO)
     slog.reset()
     band.KERNEL_LAUNCHES = band.REFERENCE_CALLS = 0
+    _reset_trace_counters()
     try:
         fn()
     finally:
@@ -1355,12 +1661,18 @@ def band_counted(phase: str, label: str, fn, per_step: int = 1) -> Counter:
     steps = slog.snapshot()["counters"].get("db.files_steps", 0)
     slog.reset()
     n, refs = band.KERNEL_LAUNCHES, band.REFERENCE_CALLS
+    t, t_refs = _trace_launches(), corr.REFERENCE_CALLS
     print(f"{phase}: {label}: {steps} files steps, band_max_kernel launches "
-          f"{n}, plain-version calls {refs}")
-    require(steps > 0 and n == per_step * steps and refs == 0,
-            f"{label}: band_max_kernel launches are not {per_step} a files "
-            f"step, or it reached the plain version")
-    return Counter(band_max_kernel=n)
+          f"{n}, plain-version calls {refs}; trace_spectra_kernel launches "
+          f"{t['trace_spectra_kernel']}, trace_epilogue_kernel launches "
+          f"{t['trace_epilogue_kernel']}, plain traces {t_refs}")
+    require(steps > 0 and n == per_step * steps * punch and refs == 0,
+            f"{label}: band_max_kernel launches are not {per_step * punch} a "
+            f"files step, or it reached the plain version")
+    require(all(v == per_step * steps for v in t.values()) and t_refs == 0,
+            f"{label}: each trace kernel's launches are not {per_step} a "
+            f"files step, or it reached the plain traces")
+    return Counter(band_max_kernel=n, **t)
 
 
 def scale_phase(seed: int, card: str) -> Counter:
@@ -1412,6 +1724,11 @@ def scale_phase(seed: int, card: str) -> Counter:
     _profile("warm query", lambda: db.query(t_in, k=4), card)
     _profile("warm query_punch",
              lambda: db.query_punch(t_in, t_out, *BAND, k=4), card)
+    launches += band_counted("database", "scale: one query",
+                             lambda: calls["query"](db), punch=False)
+    launches += band_counted("database", "scale: one query_batch of 8",
+                             lambda: calls["query_batch of 8"](db),
+                             per_step=8, punch=False)
     launches += band_counted("database", "scale: one query_punch",
                              lambda: calls["query_punch"](db))
     launches += band_counted(
@@ -2209,6 +2526,10 @@ def mesh_correlation(seed: int, card: str, mesh) -> Counter:
     chunks = -(-DB_FILES // (-(-CHUNK_SIZE // MESH_SHARDS) * MESH_SHARDS))
     require(launches["prep_long"] == MESH_SHARDS * chunks,
             f"{launches['prep_long']} prep launches for {chunks} chunk(s)")
+    require(launches["trace_spectra_kernel"] == 2 * MESH_SHARDS * chunks
+            and launches["trace_epilogue_kernel"] == 2 * MESH_SHARDS * chunks,
+            f"sharded -c: each trace kernel's launches are not one a trace "
+            f"group, shard and chunk (two groups each)")
     require([(m.file, m.punch.start, m.punch.stop) for m in got]
             == [(m.file, m.punch.start, m.punch.stop) for m in want],
             "sharded -c matches differ from the unsharded search")
@@ -2437,11 +2758,13 @@ def mesh_phase(seed: int, card: str) -> Counter:
     return launches
 
 
-#: each CUDA source and the kernel it holds, and the TPU kernel each
-#: replaces (the band maximum replaces XLA ops, no TPU kernel)
-KERNEL_SOURCES = {"prep": "prep_long", "band": "band_max_kernel"}
+#: each CUDA source and the kernels it holds, and the TPU kernel each
+#: replaces (the band maximum and the traces replace XLA ops, no TPU kernel)
+KERNEL_SOURCES = {"prep": ("prep_long",), "band": ("band_max_kernel",),
+                  "trace": ("trace_spectra_kernel", "trace_epilogue_kernel")}
 REPLACES = {"prep_long": "strugatzki_tpu/kernels/pallas_prep.py:39",
-            "band_max_kernel": None}
+            "band_max_kernel": None, "trace_spectra_kernel": None,
+            "trace_epilogue_kernel": None}
 
 
 def main(argv=None) -> int:
@@ -2475,11 +2798,11 @@ def main(argv=None) -> int:
           f"float32 matmul precision 'highest'; host {os.cpu_count()} "
           f"cores, {len(os.sched_getaffinity(0))} usable")
 
-    for src, kernel in KERNEL_SOURCES.items():
+    for src, names in KERNEL_SOURCES.items():
         t0 = time.perf_counter()
         _build.load(src)
         info = _build.build_info[src]
-        print(f"build: csrc/{src}.cu ({kernel}) with nvcc "
+        print(f"build: csrc/{src}.cu ({', '.join(names)}) with nvcc "
               f"{' '.join(_build.NVCC_FLAGS)} in {info['seconds']:.2f} s "
               f"({time.perf_counter() - t0:.2f} s with loading)")
         for line in info["log"].splitlines():
@@ -2497,6 +2820,7 @@ def main(argv=None) -> int:
 
     kernels = timed("kernel", kernel_phase)
     kernels["band_max_kernel"] = timed("band", band_phase)
+    kernels.update(timed("trace", trace_phase))
     launches = timed("slice", slice_phase)
     launches += timed("database", database_phase)
     launches += timed("modes", modes_phase)
@@ -2512,7 +2836,7 @@ def main(argv=None) -> int:
         "plain_ms": kernels[kernel]["plain_ms"],
         "bound_ms": kernels[kernel]["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "shape": kernels[kernel]["shape"]}
-        for src, kernel in KERNEL_SOURCES.items()]}))
+        for src, names in KERNEL_SOURCES.items() for kernel in names]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

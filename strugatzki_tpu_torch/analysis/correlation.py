@@ -93,6 +93,30 @@ class InputTemplate:
         """The centered spectral group on ``device`` (staged once)."""
         return self._stage("s", self.spectral_centered, device)
 
+    def device_spectrum(self, device, n: int) -> torch.Tensor:
+        """:func:`~..kernels.corr.template_spectrum` of the centered groups
+        at FFT length ``n`` on ``device`` (computed once per device and
+        ``n``): what the trace kernels multiply the files' spectra by."""
+        dev = resolve(device)
+        key = ("f", dev, n)
+        t = self._staged.get(key)
+        if t is None:
+            tmpl_t = self.device_temporal(dev)
+            tmpl_s = self.device_spectral(dev)
+            with trace("corr.template"):
+                t = K.template_spectrum(tmpl_t, tmpl_s, n)
+            self._staged[key] = t
+        return t
+
+    def trace_template(self, device, n: int,
+                       temp_weight: float) -> "K.TraceTemplate":
+        """This template's :class:`~..kernels.corr.TraceTemplate` on
+        ``device`` at FFT length ``n`` and blend weight ``temp_weight``."""
+        return K.TraceTemplate(
+            self.device_temporal(device), self.device_spectral(device),
+            self.temporal_std, self.spectral_std, self.ln_avg_loudness,
+            temp_weight, self.device_spectrum(device, n))
+
     @staticmethod
     @traced("corr.template")
     def from_features(features: np.ndarray, norm: Optional[np.ndarray],

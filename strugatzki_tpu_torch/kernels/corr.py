@@ -4,7 +4,12 @@ Port of ``strugatzki_tpu/kernels/corr.py``:
 
 * **sliding template correlation** (FeatureCorrelation, CrossSimilarity):
   one rfft per channel serves the template dots and, through a ones-kernel
-  spectrum, the sliding window sums and sums of squares;
+  spectrum, the sliding window sums and sums of squares.  On a card a
+  group of templates over the same files (:func:`correlation_traces`) is
+  one pipeline: ``trace_spectra_kernel`` (``csrc/trace.cu``) writes every
+  row the inverse FFT needs, one ``torch.fft.irfft`` transforms them all,
+  and ``trace_epilogue_kernel`` turns them into sims and boosts; the eager
+  per-template functions are the plain version, which CPU tensors take;
 * **novelty curve** (FeatureSegmentation): ``correlateHalf`` at every window
   position from a lag product plus FFT window sums;
 * **gram similarity** (SelfSimilarity): ``correlateHalf`` over window pairs
@@ -28,19 +33,39 @@ is zero is never evaluated (the JAX package computes it and selects 0 with
 
 from __future__ import annotations
 
+import ctypes
 import math
 from functools import lru_cache
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .prep import _check
+
 __all__ = ["prepare_template", "shift_per_group", "sliding_dot_fft",
            "correlation_trace", "trace_spectra",
            "correlation_trace_from_spectra", "forward_spectra",
+           "TraceTemplate", "template_spectrum", "TracePlan", "trace_plan",
+           "trace_rows_reference", "trace_epilogue_reference",
+           "trace_rows_cuda", "trace_epilogue_cuda",
+           "correlation_traces_cuda", "correlation_traces",
            "pack_spectra", "unpack_spectra", "window_sum_table",
            "correlation_trace_from_sums", "novelty_trace", "novelty_sums",
            "novelty_finish", "extract_windows", "window_stats", "gram_similarity_block"]
+
+# Read the counters as ``corr.KERNEL_LAUNCHES``: a ``from`` import copies
+# the int.
+#: kernel launches of :func:`trace_rows_cuda` and
+#: :func:`trace_epilogue_cuda`: two a trace group
+KERNEL_LAUNCHES = 0
+#: of them, launches of ``trace_spectra_kernel`` (:func:`trace_rows_cuda`)
+SPECTRA_LAUNCHES = 0
+#: and of ``trace_epilogue_kernel`` (:func:`trace_epilogue_cuda`)
+EPILOGUE_LAUNCHES = 0
+#: templates traced by the plain PyTorch version (:func:`_trace_finish`)
+REFERENCE_CALLS = 0
 
 
 # ---------------------------------------------------------------------------
@@ -158,10 +183,11 @@ def correlation_trace(xs: torch.Tensor,
     Returns ``(sim [..., W], boost [..., W])`` float32.
     """
     X, Xsq = trace_spectra(xs, num_temporal=num_temporal)
-    return correlation_trace_from_spectra(
-        X, Xsq, xs.shape[-1], template_t, template_s, a_std_t, a_std_s,
-        ln_avg_loud, temporal_shift, temp_weight, max_boost,
-        num_temporal=num_temporal)
+    return correlation_traces(
+        X, Xsq, False, xs.shape[-1],
+        [TraceTemplate(template_t, template_s, a_std_t, a_std_s, ln_avg_loud,
+                       temp_weight)],
+        temporal_shift, max_boost, num_temporal=num_temporal)[0]
 
 
 def trace_spectra(xs: torch.Tensor, num_temporal: int = 1):
@@ -300,8 +326,31 @@ def _trace_epilogue(X, t_padded, s_t, q_t, s_s, q_s, mu0,
     nt = num_temporal
     L = template_t.shape[-1]
     W = t_padded - L + 1
-    C_s = X.shape[-2] - nt
     N = _fft_len(t_padded)
+
+    def tdot(tmpl, rows):
+        ta = torch.fft.rfft(tmpl, n=N, dim=-1)
+        spec = (torch.conj(ta) * rows).sum(dim=-2)
+        return torch.fft.irfft(spec, n=N)[..., :W]
+
+    return _trace_finish(
+        s_t, q_t, s_s, q_s, mu0,
+        lambda: tdot(template_t, X[..., :nt, :]),
+        lambda: tdot(template_s, X[..., nt:, :]),
+        L, X.shape[-2] - nt, a_std_t, a_std_s, ln_avg_loud, temporal_shift,
+        temp_weight, max_boost, num_temporal=nt)
+
+
+def _trace_finish(s_t, q_t, s_s, q_s, mu0, dot_t, dot_s, L: int, C_s: int,
+                  a_std_t, a_std_s, ln_avg_loud, temporal_shift, temp_weight,
+                  max_boost, num_temporal: int = 1):
+    """The elementwise end of a trace: window statistics, the blend of the
+    template dots ``dot_t()``/``dot_s()`` (callables: a group the blend
+    leaves out is never evaluated) and the boost gate → ``(sim [..., W],
+    boost [..., W])`` float32."""
+    global REFERENCE_CALLS
+    REFERENCE_CALLS += 1
+    nt = num_temporal
 
     n_t = nt * L
     mu_t = s_t / n_t
@@ -313,17 +362,10 @@ def _trace_epilogue(X, t_padded, s_t, q_t, s_s, q_s, mu0,
     var_s = torch.clamp_min(q_s / n_s - mu_s * mu_s, 0.0)
     std_s = torch.sqrt(var_s)
 
-    def tdot(tmpl, rows):
-        ta = torch.fft.rfft(tmpl, n=N, dim=-1)
-        spec = (torch.conj(ta) * rows).sum(dim=-2)
-        return torch.fft.irfft(spec, n=N)[..., :W]
-
     sim = _blend(
         temp_weight,
-        lambda: tdot(template_t, X[..., :nt, :])
-        / (std_t * _f32(a_std_t) * n_t),
-        lambda: tdot(template_s, X[..., nt:, :])
-        / (std_s * _f32(a_std_s) * n_s))
+        lambda: dot_t() / (std_t * _f32(a_std_t) * n_t),
+        lambda: dot_s() / (std_s * _f32(a_std_s) * n_s))
 
     # loudness boost: window mean of (unshifted) channel 0 — NOT the whole
     # temporal group (FeatureCorrelationImpl.scala:73-78)
@@ -336,6 +378,339 @@ def _trace_epilogue(X, t_padded, s_t, q_t, s_s, q_s, mu0,
     # `<=` is false for a NaN boost: such windows are gated to 0
     sim = torch.where(boost <= _f32(max_boost), sim, 0.0)
     return sim.to(torch.float32), boost.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# trace groups: a files step's traces as one pipeline
+# ---------------------------------------------------------------------------
+
+class TraceTemplate(NamedTuple):
+    """One template of a trace group: its centered groups ``temporal [nt,
+    L]`` and ``spectral [C − nt, L]`` (:func:`prepare_template`), their
+    host statistics, its blend weight, and its :func:`template_spectrum` at
+    the group's FFT length, or ``None`` to have it computed per call."""
+    temporal: torch.Tensor
+    spectral: torch.Tensor
+    std_t: float
+    std_s: float
+    ln_avg_loud: float
+    temp_weight: float
+    spectrum: Optional[torch.Tensor] = None
+
+
+def template_spectrum(template_t: torch.Tensor, template_s: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """``conj(rfft)`` of a template's centered groups at FFT length ``n``,
+    temporal rows first: ``[C, n/2+1]`` complex64, the spectra the template
+    dots multiply the files' spectra by."""
+    return torch.conj_physical(torch.cat(
+        [torch.fft.rfft(template_t, n=n, dim=-1),
+         torch.fft.rfft(template_s, n=n, dim=-1)]))
+
+
+class TracePlan(NamedTuple):
+    """The complex rows of a trace group, one block per file: for each
+    distinct template length (the full spectra cache only) the window-sum
+    rows ``Σ_t X·conj(1_L)``, ``Xsq_0·conj(1_L)``, ``Σ_s X·conj(1_L)``,
+    ``Xsq_1·conj(1_L)`` (and ``X_0·conj(1_L)`` when ``num_temporal != 1``),
+    then each template's dots ``Σ_t conj(ta)·X`` and ``Σ_s conj(ta)·X``, a
+    dot only where the blend weighs its group."""
+    t_padded: int
+    n_fft: int
+    rows: int         # R, complex rows a file
+    ones: tuple       # the window-sum blocks' lengths; () on the sums path
+    n_sum: int        # rows a window-sum block: 4, or 5 when nt != 1
+    lengths: tuple    # each template's L
+    bases: tuple      # each template's window-sum block's first row, or -1
+    dots: tuple       # each template's (temporal, spectral) dot rows, or -1
+
+
+@lru_cache(maxsize=256)
+def trace_plan(t_padded: int, lengths: tuple, weights: tuple,
+               use_sums: bool, num_temporal: int = 1) -> TracePlan:
+    """The :class:`TracePlan` of templates of ``lengths`` and blend
+    ``weights`` over files of padded width ``t_padded``; window sums from
+    the rows, or with ``use_sums`` from a :func:`window_sum_table`."""
+    for L in lengths:
+        if t_padded - L + 1 <= 0:
+            raise ValueError(f"template length {L} exceeds padded signal "
+                             f"length {t_padded}")
+    n_sum = 4 if num_temporal == 1 else 5
+    ones = () if use_sums else tuple(dict.fromkeys(lengths))
+    r = len(ones) * n_sum
+    dots = []
+    for w in weights:
+        w = _f32(w)
+        r_t = r if w > 0.0 else -1
+        r += w > 0.0
+        r_s = r if w < 1.0 else -1
+        r += w < 1.0
+        dots.append((r_t, r_s))
+    bases = tuple(-1 if use_sums else ones.index(L) * n_sum
+                  for L in lengths)
+    return TracePlan(t_padded, _fft_len(t_padded), r, ones, n_sum,
+                     tuple(lengths), bases, tuple(dots))
+
+
+def trace_rows_reference(X: torch.Tensor, Xsq, spectra, plan: TracePlan,
+                         num_temporal: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of ``trace_spectra_kernel``: the plan's
+    complex rows ``[..., R, N/2+1]`` from the files' spectra ``X [..., C,
+    N/2+1]``, their group power spectra ``Xsq [..., 2, N/2+1]`` (unused on
+    the sums path) and each template's :func:`template_spectrum`, with the
+    ops of :func:`correlation_trace_from_spectra`."""
+    nt = num_temporal
+    rows = []
+    if plan.ones:
+        s_t = X[..., :nt, :].sum(dim=-2)
+        s_s = X[..., nt:, :].sum(dim=-2)
+        for L in plan.ones:
+            ones_l = torch.conj(_ones_spectrum(L, plan.n_fft, X.device))
+            rows += [s_t * ones_l, Xsq[..., 0, :] * ones_l, s_s * ones_l,
+                     Xsq[..., 1, :] * ones_l]
+            if nt != 1:
+                rows.append(X[..., 0, :] * ones_l)
+    for spec, (r_t, r_s) in zip(spectra, plan.dots):
+        if r_t >= 0:
+            rows.append((spec[:nt] * X[..., :nt, :]).sum(dim=-2))
+        if r_s >= 0:
+            rows.append((spec[nt:] * X[..., nt:, :]).sum(dim=-2))
+    return torch.stack(rows, dim=-2)
+
+
+def trace_epilogue_reference(Y: torch.Tensor, sums, plan: TracePlan,
+                             templates, temporal_shift, max_boost: float,
+                             C: int, num_temporal: int = 1):
+    """Plain PyTorch version of ``trace_epilogue_kernel``: each template's
+    ``(sim, boost) [..., W]`` from the real rows ``Y = irfft(rows) [..., R,
+    N]`` of :func:`trace_rows_reference` and, on the sums path, a
+    :func:`window_sum_table` ``sums``, through :func:`_trace_finish`."""
+    nt = num_temporal
+    out = []
+    for t, L, base, (r_t, r_s) in zip(templates, plan.lengths, plan.bases,
+                                      plan.dots):
+        W = plan.t_padded - L + 1
+        if sums is not None:
+            stats = [sums[..., r, L:L + W] - sums[..., r, :W]
+                     for r in range(plan.n_sum)]
+        else:
+            stats = [Y[..., base + r, :W] for r in range(plan.n_sum)]
+        mu0 = None if nt == 1 else stats[4] / L
+        # _trace_finish calls the dots before the loop moves on
+        out.append(_trace_finish(
+            *stats[:4], mu0, lambda: Y[..., r_t, :W],
+            lambda: Y[..., r_s, :W], L, C - nt, t.std_t, t.std_s,
+            t.ln_avg_loud, temporal_shift, t.temp_weight, max_boost,
+            num_temporal=nt))
+    return out
+
+
+@lru_cache(maxsize=1)
+def _trace_lib() -> ctypes.CDLL:
+    from ._build import load
+
+    lib = load("trace")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.trace_spectra_launch.argtypes = [p] * 6 + [i] * 9 + [p]
+    lib.trace_spectra_launch.restype = i
+    lib.trace_epilogue_launch.argtypes = [p] * 6 + [i] * 9 + [p]
+    lib.trace_epilogue_launch.restype = i
+    lib.trace_error_string.argtypes = [i]
+    lib.trace_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+#: templates a trace group, and distinct template lengths, that the kernels
+#: of ``csrc/trace.cu`` take at most (``kMaxTemplates`` there): a query's
+#: one, a punch's pair
+TRACE_MAX_TEMPLATES = 2
+
+
+def trace_rows_cuda(X: torch.Tensor, Xsq, spectra, plan: TracePlan,
+                    num_temporal: int = 1) -> torch.Tensor:
+    """Launch ``trace_spectra_kernel`` (``csrc/trace.cu``) on ``X``'s
+    device and current stream: :func:`trace_rows_reference` of contiguous
+    CUDA tensors ``X [B, C, F]``, ``Xsq [B, 2, F]`` (``None`` on the sums
+    path) and ``[C, F]`` spectra → ``[B, R, F]`` complex64."""
+    global KERNEL_LAUNCHES, SPECTRA_LAUNCHES
+    dev = X.device
+    B, C, F = X.shape
+    _check(X, "X", torch.complex64, dev, (B, C, plan.n_fft // 2 + 1))
+    if plan.ones:
+        _check(Xsq, "Xsq", torch.complex64, dev, (B, 2, F))
+    for s in spectra:
+        _check(s, "template spectrum", torch.complex64, dev, (C, F))
+    if (not 1 <= len(spectra) <= TRACE_MAX_TEMPLATES
+            or not 0 < num_temporal < C or B > 65535):
+        raise ValueError(f"unsupported trace group: {len(spectra)} "
+                         f"templates, {B} files, C {C}, num_temporal "
+                         f"{num_temporal}")
+    rows = torch.empty((B, plan.rows, F), dtype=torch.complex64, device=dev)
+    if B == 0:
+        return rows
+    ones = [_ones_spectrum(L, plan.n_fft, dev) for L in plan.ones]
+    lib = _trace_lib()
+    err = lib.trace_spectra_launch(
+        X.data_ptr(), Xsq.data_ptr() if plan.ones else None,
+        _pointers(o.data_ptr() for o in ones),
+        _pointers(s.data_ptr() for s in spectra), rows.data_ptr(),
+        _spectra_dots(plan), B, C, F, num_temporal,
+        plan.rows, len(spectra), len(ones), plan.n_sum, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"trace_spectra_kernel launch ({plan}) failed: "
+                           + lib.trace_error_string(err).decode())
+    KERNEL_LAUNCHES += 1
+    SPECTRA_LAUNCHES += 1
+    return rows
+
+
+def trace_epilogue_cuda(Y: torch.Tensor, sums, plan: TracePlan, templates,
+                        shifts: torch.Tensor, max_boost: float, C: int,
+                        num_temporal: int = 1):
+    """Launch ``trace_epilogue_kernel`` (``csrc/trace.cu``) on ``Y``'s
+    device and current stream: :func:`trace_epilogue_reference` of the
+    scaled rows ``Y / N``, from contiguous CUDA tensors ``Y [B, R, N]``
+    (the unscaled inverse FFT, ``norm="forward"``: the kernel scales what
+    it reads by the exact ``1/N``), ``sums [B, 4|5, Tp+1]`` (or ``None``)
+    and ``shifts [B]`` → ``[(sim, boost) [B, W]]`` float32."""
+    global KERNEL_LAUNCHES, EPILOGUE_LAUNCHES
+    dev = Y.device
+    B, nt, Tp1 = Y.shape[0], num_temporal, plan.t_padded + 1
+    _check(Y, "Y", torch.float32, dev, (B, plan.rows, plan.n_fft))
+    if sums is not None:
+        _check(sums, "sums", torch.float32, dev, (B, plan.n_sum, Tp1))
+    _check(shifts, "shifts", torch.float32, dev, (B,))
+    if len(templates) != len(plan.lengths) or B > 65535:
+        raise ValueError(f"unsupported trace group: {len(templates)} "
+                         f"templates for {plan}, {B} files")
+    outs = [tuple(torch.empty((B, plan.t_padded - L + 1),
+                              dtype=torch.float32, device=dev)
+                  for _ in range(2)) for L in plan.lengths]
+    if B == 0:
+        return outs
+    lib = _trace_lib()
+    err = lib.trace_epilogue_launch(
+        Y.data_ptr(), sums.data_ptr() if sums is not None else None,
+        shifts.data_ptr(),
+        _pointers(o.data_ptr() for pair in outs for o in pair),
+        _epilogue_ints(plan),
+        _epilogue_scalars(plan, tuple((t.std_t, t.std_s, t.ln_avg_loud,
+                                       t.temp_weight) for t in templates),
+                          max_boost, C, nt),
+        B, plan.rows, plan.n_fft, plan.n_sum, Tp1, nt, len(templates),
+        plan.t_padded - min(plan.lengths) + 1, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"trace_epilogue_kernel launch ({plan}) failed: "
+                           + lib.trace_error_string(err).decode())
+    KERNEL_LAUNCHES += 1
+    EPILOGUE_LAUNCHES += 1
+    return outs
+
+
+def correlation_traces_cuda(X: torch.Tensor, aux: torch.Tensor,
+                            use_sums: bool, t_padded: int, templates,
+                            temporal_shift, max_boost: float,
+                            num_temporal: int = 1):
+    """A trace group on ``X``'s device and current stream: the rows of
+    :func:`trace_plan` from :func:`trace_rows_cuda`, one
+    ``torch.fft.irfft`` over all of them, and :func:`trace_epilogue_cuda`
+    → ``[(sim, boost) [..., W]]`` float32, one pair a template.  Arguments
+    as :func:`correlation_traces`; CUDA tensors only.  A build or launch
+    failure raises; nothing is retried.  The inverse FFT is unscaled, so no
+    pass of its own multiplies its output by ``1/N``: the epilogue scales
+    each value it reads (exactly: ``N`` is a power of two)."""
+    dev = X.device
+    if dev.type != "cuda":
+        raise ValueError(f"X on {dev}: the kernels take CUDA tensors")
+    nt = num_temporal
+    plan = trace_plan(t_padded, tuple(t.temporal.shape[-1]
+                                      for t in templates),
+                      tuple(t.temp_weight for t in templates), use_sums, nt)
+    lead, C = X.shape[:-2], X.shape[-2]
+    B = math.prod(lead)
+    X = X.reshape(B, C, X.shape[-1]).contiguous()
+    aux = aux.reshape((B,) + aux.shape[-2:]).contiguous()
+    shifts = torch.as_tensor(temporal_shift, dtype=torch.float32,
+                             device=dev).expand(lead).reshape(B).contiguous()
+    spectra = [t.spectrum if t.spectrum is not None
+               else template_spectrum(t.temporal, t.spectral, plan.n_fft)
+               for t in templates]
+    rows = trace_rows_cuda(X, None if use_sums else aux, spectra, plan, nt)
+    Y = torch.fft.irfft(rows, n=plan.n_fft, norm="forward")
+    del rows
+    outs = trace_epilogue_cuda(Y, aux if use_sums else None, plan,
+                               templates, shifts, max_boost, C, nt)
+    return [(s.reshape(lead + s.shape[-1:]), b.reshape(lead + b.shape[-1:]))
+            for s, b in outs]
+
+
+@lru_cache(maxsize=256)
+def _spectra_dots(plan: TracePlan) -> ctypes.Array:
+    """``trace_spectra_kernel``'s dot rows, two a template."""
+    return _ints(r for d in plan.dots for r in d)
+
+
+@lru_cache(maxsize=256)
+def _epilogue_ints(plan: TracePlan) -> ctypes.Array:
+    """``trace_epilogue_kernel``'s rows of each template: ``L``, ``W``, its
+    window-sum block, its two dots."""
+    return _ints(v for L, base, (r_t, r_s) in zip(plan.lengths, plan.bases,
+                                                 plan.dots)
+                 for v in (L, plan.t_padded - L + 1, base, r_t, r_s))
+
+
+@lru_cache(maxsize=256)
+def _epilogue_scalars(plan: TracePlan, stats: tuple, max_boost: float,
+                      C: int, num_temporal: int) -> ctypes.Array:
+    """Each template's float32 scalars of :func:`_trace_finish` (``stats``:
+    its ``(std_t, std_s, ln_avg_loud, temp_weight)``), rounded as the eager
+    ops round them on a card: a division by a host scalar is a product
+    with its float32 reciprocal."""
+    one = np.float32(1.0)
+    consts = []
+    for (std_t, std_s, ln_avg, w), L in zip(stats, plan.lengths):
+        n_t = np.float32(num_temporal * L)
+        n_s = np.float32((C - num_temporal) * L)
+        w = np.float32(w)
+        consts += [one / n_t, one / n_s, one / np.float32(L), n_t, n_s,
+                   std_t, std_s, w, one - w, ln_avg, max_boost,
+                   one / np.float32(0.6)]
+    return (ctypes.c_float * len(consts))(*(_f32(c) for c in consts))
+
+
+def _pointers(ptrs) -> ctypes.Array:
+    ptrs = list(ptrs)
+    return (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
+
+
+def _ints(vals) -> ctypes.Array:
+    vals = list(vals)
+    return (ctypes.c_int * max(1, len(vals)))(*vals)
+
+
+def correlation_traces(X: torch.Tensor, aux: torch.Tensor, use_sums: bool,
+                       t_padded: int, templates, temporal_shift,
+                       max_boost: float, num_temporal: int = 1):
+    """The traces of a group of templates over the same files →
+    ``[(sim [..., W], boost [..., W])]``, one pair a :class:`TraceTemplate`.
+
+    ``X [..., C, N/2+1]`` are the files' forward spectra; ``aux`` their
+    group power spectra ``Xsq`` (:func:`trace_spectra`), or with
+    ``use_sums`` a :func:`window_sum_table`.  CUDA runs
+    :func:`correlation_traces_cuda`, two kernel launches and one inverse
+    FFT a group; CPU runs :func:`correlation_trace_from_spectra` or
+    :func:`correlation_trace_from_sums` once a template."""
+    if X.device.type == "cuda":
+        return correlation_traces_cuda(X, aux, use_sums, t_padded,
+                                       templates, temporal_shift, max_boost,
+                                       num_temporal)
+    fn = (correlation_trace_from_sums if use_sums
+          else correlation_trace_from_spectra)
+    return [fn(X, aux, t_padded, t.temporal, t.spectral, t.std_t, t.std_s,
+               t.ln_avg_loud, temporal_shift, t.temp_weight, max_boost,
+               num_temporal=num_temporal) for t in templates]
 
 
 # ---------------------------------------------------------------------------

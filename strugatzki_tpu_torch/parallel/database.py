@@ -79,16 +79,21 @@ _QUERY_CHUNK = 2048
 #: while the resident cache fills.
 _SPECTRA_CHUNK = 1024
 
-#: Bytes of FFT transients one files step of a query may hold.  Per file and
-#: trace lane a step holds, in complex64 rows of ``N/2 + 1`` bins: the
-#: forward spectra (``C`` + 2 rows, unless cached), the template product of
-#: the wider channel group (≤ ``C`` rows) and ~6 rows' worth of real
-#: inverse-FFT outputs and epilogue temporaries — ≈ ``8·(N/2+1)·(2C + 8)``
-#: bytes, 2.4 MB for a two-minute file (C = 14, N = 16384).  2 GiB steps so
-#: take ~880 such files per query lane, ~440 per punch pair.  A compact-cache
-#: step also holds, once per file, the unpacked complex64 ``X`` (``C`` rows)
-#: and the float32 window-sum table (``[4 or 5, Tp+1]``): ~620 such files
-#: per query lane, ~370 per punch pair.
+#: Bytes of FFT transients one files step of a query may hold.  The budget
+#: is ``2C + 8`` complex64 rows of ``N/2 + 1`` bins per file and trace lane
+#: (one lane a query template, two a punch pair) — ≈ ``8·(N/2+1)·(2C + 8)``
+#: bytes, 2.4 MB for a two-minute file (C = 14, N = 16384): 36 rows a query
+#: file, 72 a punch file.  What a step holds per file, in such rows: the
+#: forward spectra (``C`` + 2, unless cached), and for its trace group the
+#: ``R`` rows of :func:`~..kernels.corr.trace_plan` (6 a query, 12 a
+#: punch), torch's copy of them for the c2r and the real inverse-FFT output
+#: (about ``R`` rows' worth), so ~3R: 18 a query file and 36 a punch file,
+#: 34 and 52 with the spectra uncached; the ``[W]`` traces and the band
+#: maximum's are under a row each.  2 GiB steps so take ~880 such files per
+#: query lane, ~440 per punch pair.  A compact-cache step also holds, once
+#: per file, the unpacked complex64 ``X`` (``C`` rows) and the float32
+#: window-sum table (``[4 or 5, Tp+1]``): ~620 such files per query lane,
+#: ~370 per punch pair.
 _STEP_BYTES = 2 << 30
 
 
@@ -462,20 +467,19 @@ def _topk_epilogue(sims, boosts, lens, L: int, k: int):
     return vals, idx, torch.gather(boosts, -1, idx)
 
 
-def _trace(X, aux, use_sums: bool, t_padded: int, tmpl: "InputTemplate",
-           shifts_t, temp_weight: float, max_boost: float,
-           num_temporal: int):
-    """One template's (sims, boosts) ``[B, W]`` from the files' spectra:
-    ``aux`` is the group-power spectra ``Xsq`` (FFT window sums), or with
-    ``use_sums`` a :func:`~..kernels.corr.window_sum_table` (the compact
-    cache's 2-irfft trace)."""
-    dev = X.device
-    fn = (K.correlation_trace_from_sums if use_sums
-          else K.correlation_trace_from_spectra)
-    return fn(X, aux, t_padded, tmpl.device_temporal(dev),
-              tmpl.device_spectral(dev), tmpl.temporal_std,
-              tmpl.spectral_std, tmpl.ln_avg_loudness, shifts_t,
-              temp_weight, max_boost, num_temporal=num_temporal)
+def _traces(X, aux, use_sums: bool, t_padded: int, group, shifts_t,
+            max_boost: float, num_temporal: int):
+    """A trace group's ``[(sims, boosts) [B, W]]`` from the files' spectra,
+    one pair per ``(InputTemplate, temp_weight)`` of ``group``: ``aux`` is
+    the group-power spectra ``Xsq`` (FFT window sums), or with ``use_sums``
+    a :func:`~..kernels.corr.window_sum_table` (the compact cache's
+    dots-only trace).  On a card the group is two kernel launches and one
+    inverse FFT (:func:`~..kernels.corr.correlation_traces`)."""
+    dev, n = X.device, K._fft_len(t_padded)
+    return K.correlation_traces(
+        X, aux, use_sums, t_padded,
+        [t.trace_template(dev, n, tw) for t, tw in group], shifts_t,
+        max_boost, num_temporal=num_temporal)
 
 
 def _punch_from_spectra(X, aux, use_sums: bool, t_padded: int, punch_in,
@@ -484,8 +488,8 @@ def _punch_from_spectra(X, aux, use_sums: bool, t_padded: int, punch_in,
                         scan_span: int, num_temporal: int = 1, k: int = 4):
     """Punch-in × punch-out combine for a block of files (the reference's
     three hot loops, FeatureCorrelationImpl.scala:190-389).  ``aux`` and
-    ``use_sums`` as in :func:`_trace`; on the sums path both punch
-    templates share one window-sum table.
+    ``use_sums`` as in :func:`_traces`; the two punch templates are one
+    trace group, and on the sums path share one window-sum table.
 
     Per file: both sliding traces, then for every punch-in offset ``t`` the
     best punch-out start in the band ``t + min_punch + [0, scan_span)``,
@@ -503,10 +507,9 @@ def _punch_from_spectra(X, aux, use_sums: bool, t_padded: int, punch_in,
     L_in, L_out = punch_in.num_frames, punch_out.num_frames
     Tp = t_padded
     W_out = Tp - L_out + 1
-    sims_in, boosts_in = _trace(X, aux, use_sums, Tp, punch_in, shifts_t,
-                                tw_in, max_boost, num_temporal)
-    sims_out, boosts_out = _trace(X, aux, use_sums, Tp, punch_out, shifts_t,
-                                  tw_out, max_boost, num_temporal)
+    (sims_in, boosts_in), (sims_out, boosts_out) = _traces(
+        X, aux, use_sums, Tp, [(punch_in, tw_in), (punch_out, tw_out)],
+        shifts_t, max_boost, num_temporal)
     band_sim, best_j = band_max(sims_in, sims_out, lens, L_in, L_out, Tp,
                                 min_punch, scan_span)
     vals, t_idx = _topk(band_sim, k)
@@ -1010,7 +1013,7 @@ class FeatureDatabase:
 
     def _spectra_steps(self, lanes: int):
         """Yield ``(shard index, shard-local files slice, X, aux,
-        use_sums)`` (see :func:`_trace`) over the whole files axis, shard by
+        use_sums)`` (see :func:`_traces`) over the whole files axis, shard by
         shard, each step within :data:`_STEP_BYTES` of transients for
         ``lanes`` traces per file and within one :data:`_QUERY_CHUNK` range:
         the resident cache's rows, the compact cache's rows unpacked beside
@@ -1061,9 +1064,9 @@ class FeatureDatabase:
                 shifts = self._shards[i].shifts[s]
                 lens = self._shards[i].lens[s]
                 for q, t in enumerate(templates):
-                    sims, boosts = _trace(X, aux, use_sums, t_padded, t,
-                                          shifts, temp_weight, max_boost,
-                                          self._num_temporal)
+                    (sims, boosts), = _traces(
+                        X, aux, use_sums, t_padded, [(t, temp_weight)],
+                        shifts, max_boost, self._num_temporal)
                     out = _topk_epilogue(sims, boosts, lens, t.num_frames, k)
                     parts[q].append(
                         (i, out + (sims, boosts) if with_traces else out))

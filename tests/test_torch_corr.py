@@ -311,3 +311,142 @@ def test_forward_spectra_and_planar_packing_match_jax():
     assert (err <= 2.0 ** -8 * np.abs(X.numpy()) + 1e-30).all()
     f16 = PK.pack_spectra(X, torch.float16)
     assert f16[0].dtype == torch.float16
+
+
+# ---------------------------------------------------------------------------
+# trace groups (``correlation_traces``): the plain path on the CPU
+# ---------------------------------------------------------------------------
+
+def _group_case(nt, lengths, weights, seed=3, B=3, C=6, T=220):
+    """Files ``[B, C, T]`` (one with a constant temporal group, one with a
+    quiet stretch and a negative-loudness stretch, so the temporal group
+    degenerates and both boost gates fire), each shifted per group, and
+    the templates of ``lengths`` cut from file 1."""
+    x = np.stack([_features(C=C, T=T, seed=seed + b) for b in range(B)])
+    x[0, :nt] = 0.4                     # zero temporal std: 0/0 sims
+    x[2, 0, 100:140] *= 0.001           # boost far above max_boost
+    x[2, 0, 160:200] = -0.3             # negative mean: NaN boost
+    xs, shifts = zip(*(PK.shift_per_group(f, nt)[:2] for f in x))
+    xs = torch.from_numpy(np.stack(xs))
+    templates = []
+    for i, (L, w) in enumerate(zip(lengths, weights)):
+        PT = PC.InputTemplate(x[1, :, 20 + 30 * i:20 + 30 * i + L], nt)
+        templates.append(PT.trace_template("cpu", PK._fft_len(T), w))
+    return xs, torch.tensor(shifts, dtype=torch.float32), templates
+
+
+def _per_template(X, aux, use_sums, T, templates, shifts, nt):
+    fn = (PK.correlation_trace_from_sums if use_sums
+          else PK.correlation_trace_from_spectra)
+    return [fn(X, aux, T, t.temporal, t.spectral, t.std_t, t.std_s,
+               t.ln_avg_loud, shifts, t.temp_weight, 8.0, num_temporal=nt)
+            for t in templates]
+
+
+def _bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+GROUPS = [((40,), (0.5,)), ((40, 24), (0.5, 0.5)), ((40, 24), (0.0, 1.0)),
+          ((40, 40), (0.25, 0.0))]
+
+
+@pytest.mark.parametrize("use_sums", [False, True])
+@pytest.mark.parametrize("nt", [1, 2])
+@pytest.mark.parametrize("lengths,weights", GROUPS)
+def test_trace_group_plain_path_is_per_template_bits(lengths, weights, nt,
+                                                     use_sums):
+    """On the CPU a trace group is the per-template functions, bit for bit:
+    one and two templates of different and equal lengths, ``nt`` 1 and 2,
+    both cache paths, a degenerate temporal group left out by a zero
+    weight, the NaN and large-boost gates.  The staged plain version of the
+    kernels' pipeline (the plan's rows, one batched irfft, the epilogue)
+    gives the same bits too, on one thread (the FFT library's threaded
+    batches round otherwise)."""
+    xs, shifts, templates = _group_case(nt, lengths, weights)
+    T = xs.shape[-1]
+    if use_sums:
+        X, aux = PK.forward_spectra(xs), PK.window_sum_table(xs, nt)
+    else:
+        X, aux = PK.trace_spectra(xs, num_temporal=nt)
+    want = _per_template(X, aux, use_sums, T, templates, shifts, nt)
+    calls, launches = PK.REFERENCE_CALLS, PK.KERNEL_LAUNCHES
+    got = PK.correlation_traces(X, aux, use_sums, T, templates, shifts, 8.0,
+                                num_temporal=nt)
+    assert PK.REFERENCE_CALLS - calls == len(templates)
+    assert PK.KERNEL_LAUNCHES == launches
+    assert len(got) == len(want)
+    for (gs, gb), (ws, wb) in zip(got, want):
+        assert _bits(gs, ws) and _bits(gb, wb)
+
+    plan = PK.trace_plan(T, lengths, weights, use_sums, nt)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        want = _per_template(X, aux, use_sums, T, templates, shifts, nt)
+        rows = PK.trace_rows_reference(X, None if use_sums else aux,
+                                       [t.spectrum for t in templates],
+                                       plan, nt)
+        Y = torch.fft.irfft(rows, n=plan.n_fft)
+        staged = PK.trace_epilogue_reference(
+            Y, aux if use_sums else None, plan, templates, shifts, 8.0,
+            X.shape[-2], nt)
+    finally:
+        torch.set_num_threads(threads)
+    assert rows.shape == (xs.shape[0], plan.rows, plan.n_fft // 2 + 1)
+    for (gs, gb), (ws, wb) in zip(staged, want):
+        assert _bits(gs, ws) and _bits(gb, wb)
+    # the degenerate temporal group reaches the sims only where weighed
+    for t, (s, b) in zip(templates, want):
+        assert np.isnan(b[2].numpy()).any() and (b[2] > 8.0).any()
+        assert (s[~(b <= 8.0)] == 0).all()
+        assert np.isfinite(s[0].numpy()).all() == (t.temp_weight == 0.0)
+
+
+def test_trace_plan_lays_out_rows():
+    """Window-sum blocks once per distinct length (none on the sums path),
+    then each template's dots where the blend weighs its group; a template
+    longer than the files raises as the per-template functions do."""
+    p = PK.trace_plan(300, (40, 24, 40), (0.5, 0.0, 1.0), False, 1)
+    assert p.ones == (40, 24) and p.n_sum == 4
+    assert p.bases == (0, 4, 0)
+    assert p.dots == ((8, 9), (-1, 10), (11, -1)) and p.rows == 12
+    assert p.n_fft == 512
+    p = PK.trace_plan(300, (40, 24), (0.5, 0.5), False, 2)
+    assert p.bases == (0, 5) and p.dots == ((10, 11), (12, 13))
+    p = PK.trace_plan(300, (40, 24), (0.5, 1.0), True, 2)
+    assert p.ones == () and p.bases == (-1, -1) and p.n_sum == 5
+    assert p.dots == ((0, 1), (2, -1)) and p.rows == 3
+    with pytest.raises(ValueError, match="exceeds"):
+        PK.trace_plan(300, (40, 301), (0.5, 0.5), False, 1)
+
+
+def test_trace_kernels_take_cuda_tensors_only():
+    xs, shifts, templates = _group_case(1, (40,), (0.5,))
+    X, Xsq = PK.trace_spectra(xs)
+    with pytest.raises(ValueError, match="CUDA"):
+        PK.correlation_traces_cuda(X, Xsq, False, xs.shape[-1], templates,
+                                   shifts, 8.0)
+
+
+@pytest.mark.parametrize("nt", [1, 2])
+def test_template_spectrum_cache(nt):
+    """``InputTemplate.device_spectrum`` holds one entry per device and FFT
+    length, each ``conj(rfft)`` of the centered groups at that length."""
+    x = _features(C=6, T=120, seed=2)
+    t = PC.InputTemplate(x[:, 10:50], nt)
+    a = t.device_spectrum("cpu", 64)
+    assert t.device_spectrum("cpu", 64) is a
+    b = t.device_spectrum("cpu", 128)
+    assert b is not a and b.shape == (6, 65) and a.shape == (6, 33)
+    assert len([k for k in t._staged if k[0] == "f"]) == 2
+    for n, s in ((64, a), (128, b)):
+        want = torch.cat([torch.fft.rfft(torch.from_numpy(
+            t.temporal_centered), n=n), torch.fft.rfft(torch.from_numpy(
+                t.spectral_centered), n=n)]).conj()
+        assert s.dtype == torch.complex64
+        assert torch.equal(s, want.resolve_conj())
+    tt = t.trace_template("cpu", 128, 0.25)
+    assert tt.spectrum is b and tt.temp_weight == 0.25
+    assert (tt.std_t, tt.std_s, tt.ln_avg_loud) == (
+        t.temporal_std, t.spectral_std, t.ln_avg_loudness)
