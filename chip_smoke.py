@@ -42,10 +42,12 @@ drives the README quick start through the port (``strugatzki_tpu_torch``):
    ``nt`` 2 and with blend weights 0 and 1, on files with a constant
    temporal group, a quiet stretch and negative loudness: the rows within
    1e-6 of each row's largest bin, the epilogue bit for bit on the same
-   rows, a whole group (one launch of each) against the plain
-   per-template traces within 2e-6; each kernel timed (cold: its inputs exceed the L2) beside
-   its bound and its plain version, with the irfft, the group against the
-   plain traces and the peak memory of each;
+   rows, a whole group (one launch of each) against the same templates
+   traced one at a time through the plain versions on the card within
+   2e-6; each kernel timed (cold:
+   its inputs exceed the L2) beside its bound and its plain version, with
+   the irfft, the group against the plain pipeline on the card and the
+   peak memory of each;
 4. slice: 20 PCM16 files of 120 s plus a query, written from the seed;
    ``-f`` over the folder, ``--stats``, and a punch-in/punch-out search
    (``FeatureCorrelation``, temporal weight 0.5, 12-20 s, top 10) on CUDA.
@@ -816,17 +818,42 @@ def trace_bound_ms(B, C, F, plan, sums: bool):
     return rows_b / HBM_BYTES_PER_S * 1e3, epi_b / HBM_BYTES_PER_S * 1e3
 
 
+def _plain_traces(X, aux, sums, T, templates, shifts, nt):
+    """The templates of a group traced one at a time on the card through
+    the kernels' plain versions: each template's own :func:`trace_plan`,
+    ``trace_rows_reference``, the scaled irfft and
+    ``trace_epilogue_reference`` (the pipeline ``correlation_traces`` runs
+    on CPU tensors) → ``[(sim, boost)]``."""
+    import torch
+
+    from strugatzki_tpu_torch.kernels import corr as K
+
+    xsq, table = (None, aux) if sums else (aux, None)
+    out = []
+    for t in templates:
+        plan = K.trace_plan(T, (t.temporal.shape[-1],), (t.temp_weight,),
+                            sums, nt)
+        Y = torch.fft.irfft(K.trace_rows_reference(X, xsq, [t.spectrum],
+                                                   plan, nt), n=plan.n_fft)
+        out += K.trace_epilogue_reference(Y, table, plan, [t], shifts, 8.0,
+                                          X.shape[-2], nt)
+        del Y
+    return out
+
+
 def trace_phase(seed: int, card: str):
     """``trace_spectra_kernel`` and ``trace_epilogue_kernel`` against their
     plain versions on the card at each of ``TRACE_STEPS``: the rows within
     1e-6 of each row's largest bin; the epilogue on the same real rows bit
-    for bit; the whole group (two launches, one irfft) against the plain
-    per-template traces within TRACE_SIM_TOL / TRACE_BOOST_RTOL, NaN and
-    gate positions equal.  Times at the cells' steps: each kernel (its
-    inputs exceed the L2, so every call is cold) beside its bound and its
-    plain version, the irfft, the whole group and the plain traces, and
-    the peak memory of a group against the plain traces'.  Returns the two
-    kernels' entries of the ``kernels`` line."""
+    for bit; the whole group (two launches, one irfft) against the same
+    templates traced one at a time through the plain versions on the card
+    (:func:`_plain_traces`) within
+    TRACE_SIM_TOL / TRACE_BOOST_RTOL, NaN and gate positions equal.  Times
+    at the cells' steps: each kernel (its inputs exceed the L2, so every
+    call is cold) beside its bound and its plain version, the irfft, the
+    whole group and the plain pipeline on the card, and the peak memory of
+    a group against the plain pipeline's.  Returns the two kernels'
+    entries of the ``kernels`` line."""
     import torch
 
     from strugatzki_tpu_torch.kernels import corr as K
@@ -873,15 +900,8 @@ def trace_phase(seed: int, card: str):
         require(k1 == (1, 1), f"{label}: {k1} launches of "
                 "(trace_spectra_kernel, trace_epilogue_kernel) for one "
                 "trace group")
-        fn = (K.correlation_trace_from_sums if sums
-              else K.correlation_trace_from_spectra)
-
-        def plain():
-            return [fn(X, aux, T, t.temporal, t.spectral, t.std_t, t.std_s,
-                       t.ln_avg_loud, shifts, t.temp_weight, 8.0,
-                       num_temporal=nt) for t in templates]
-
-        s_err, b_err = _trace_errors(got, plain())
+        s_err, b_err = _trace_errors(
+            got, _plain_traces(X, aux, sums, T, templates, shifts, nt))
         require(s_err <= TRACE_SIM_TOL and b_err <= TRACE_BOOST_RTOL,
                 f"{label}: sims differ by {s_err:.3e}, boosts by {b_err:.3e}")
         del got
@@ -889,12 +909,13 @@ def trace_phase(seed: int, card: str):
               f" weights {weights}, nt {nt}{', window-sum table' if sums else ''}"
               f" ({plan.rows} rows a file): rows within {row_err:.3e} of "
               f"their largest bin; epilogue equal bit for bit; the group "
-              f"against the plain traces: sims max |err| {s_err:.3e} "
+              f"against the templates one at a time through the plain "
+              f"versions: sims max |err| {s_err:.3e} "
               f"({TRACE_SIM_TOL}), boosts max rel err {b_err:.3e} "
               f"({TRACE_BOOST_RTOL})")
         if label.startswith(("serve", "compact punch step")) and nt == 1:
             timed = _time_trace(label, X, aux, xsq, table, shifts, templates,
-                                plan, sums, nt, plain, card)
+                                plan, sums, nt, card)
             for e in timed.values():
                 e["err"] = s_err
             entries.update(timed)
@@ -904,7 +925,7 @@ def trace_phase(seed: int, card: str):
 
 
 def _time_trace(label, X, aux, xsq, table, shifts, templates, plan, sums,
-                nt, plain, card):
+                nt, card):
     """Times and peak memory of a trace group at one step (see
     :func:`trace_phase`); returns the kernels' entries at the serve10k
     punch step, else {}."""
@@ -927,6 +948,12 @@ def _time_trace(label, X, aux, xsq, table, shifts, templates, plan, sums,
     p_epi = cuda_ms(lambda: K.trace_epilogue_reference(
         Y, table, plan, templates, shifts, 8.0, C, nt), 5)
     del rows, Y
+
+    def plain():
+        Y = torch.fft.irfft(K.trace_rows_reference(X, xsq, spectra, plan, nt),
+                            n=plan.n_fft)
+        return K.trace_epilogue_reference(Y, table, plan, templates, shifts,
+                                          8.0, C, nt)
     group = [cuda_ms(lambda: K.correlation_traces(
         X, aux, sums, plan.t_padded, templates, shifts, 8.0, nt), 20)
         for _ in range(2)]
@@ -951,7 +978,7 @@ def _time_trace(label, X, aux, xsq, table, shifts, templates, plan, sums,
           f"{B * plan.rows} rows {t_fft:.4f} ms; trace_epilogue_kernel "
           f"{t_epi:.4f} ms, bound {b_epi:.4f} ms ({b_epi / t_epi:.1%}), "
           f"plain version {p_epi:.4f} ms; the group {group[0]:.4f} / "
-          f"{group[1]:.4f} ms against the plain traces {old[0]:.4f} / "
+          f"{group[1]:.4f} ms against the plain pipeline {old[0]:.4f} / "
           f"{old[1]:.4f} ms; transient peak {peaks[0]:.3f} GB against "
           f"{peaks[1]:.3f} GB; on {card}")
     if label != "serve10k punch step":

@@ -5,7 +5,9 @@ a shared library with a plain C interface, loaded with :mod:`ctypes`.  The
 library lands in ``strugatzki_tpu_torch/_build/`` under a name keyed by a
 hash of the source and the flags, so an edited source rebuilds and an
 unchanged one is reused.  Nothing here runs at import time, and a failed
-build raises: there is no other path to fall back to.
+build raises: there is no other path to fall back to.  The kernel wrappers
+also share what a launch needs here: the check of each tensor argument,
+ctypes arrays of pointers and ints, and the error a failed launch raises.
 """
 
 from __future__ import annotations
@@ -18,7 +20,10 @@ import subprocess
 import threading
 import time
 
-__all__ = ["NVCC_FLAGS", "load", "BUILD_DIR", "build_info"]
+import torch
+
+__all__ = ["NVCC_FLAGS", "load", "BUILD_DIR", "build_info", "check",
+           "raise_on", "pointers", "ints"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -77,3 +82,39 @@ def load(name: str) -> ctypes.CDLL:
         _libs[name] = lib
         build_info[name] = info
         return lib
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype,
+          device: torch.device, shape) -> None:
+    """Raise ``ValueError`` unless kernel argument ``name`` is a contiguous
+    tensor of ``dtype`` and ``shape`` on ``device``."""
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on(err: int, error_string, what: str, plan=None) -> None:
+    """Raise ``RuntimeError`` for a non-zero launch code ``err``: ``"<what>
+    (<plan>) failed: "`` and the library's message, ``error_string(err)``
+    (its ``<name>_error_string``)."""
+    if err != 0:
+        where = what if plan is None else f"{what} ({plan})"
+        raise RuntimeError(f"{where} failed: " + error_string(err).decode())
+
+
+def pointers(ptrs) -> ctypes.Array:
+    """A ``void*`` array of device pointers (one slot at least)."""
+    ptrs = list(ptrs)
+    return (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
+
+
+def ints(vals) -> ctypes.Array:
+    """An ``int`` array (one slot at least)."""
+    vals = list(vals)
+    return (ctypes.c_int * max(1, len(vals)))(*vals)

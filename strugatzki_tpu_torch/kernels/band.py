@@ -31,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .prep import _check
+from ._build import check, raise_on
 
 __all__ = ["band_max", "band_max_cuda", "band_max_reference", "band_plan",
            "BandPlan"]
@@ -205,9 +205,9 @@ def band_max_cuda(sims_in, sims_out, lens, L_in: int, L_out: int, Tp: int,
         raise ValueError(f"unsupported widths W_in {W_in}, W_out {W_out}")
     sims_in, sims_out, lens = (t.contiguous()
                                for t in (sims_in, sims_out, lens))
-    _check(sims_in, "sims_in", torch.float32, dev, (B, W_in))
-    _check(sims_out, "sims_out", torch.float32, dev, (B, W_out))
-    _check(lens, "lens", torch.int32, dev, (B,))
+    check(sims_in, "sims_in", torch.float32, dev, (B, W_in))
+    check(sims_out, "sims_out", torch.float32, dev, (B, W_out))
+    check(lens, "lens", torch.int32, dev, (B,))
     plan = band_plan(W_in, Tp, min_punch, scan_span)
     band_sim = torch.empty((B, W_in), dtype=torch.float32, device=dev)
     best_j = torch.empty((B, W_in), dtype=torch.int32, device=dev)
@@ -234,9 +234,7 @@ def band_max_cuda(sims_in, sims_out, lens, L_in: int, L_out: int, Tp: int,
             plan.j_sel, plan.s1, plan.s2, plan.tile, plan.tiles, plan.pairs,
             dev.index, stream)
         launches = 1
-    if err != 0:
-        raise RuntimeError(f"band maximum launch ({plan}) failed: "
-                           + lib.band_error_string(err).decode())
+    raise_on(err, lib.band_error_string, "band maximum launch", plan)
     KERNEL_LAUNCHES += launches
     return band_sim, best_j
 

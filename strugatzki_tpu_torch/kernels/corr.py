@@ -8,8 +8,8 @@ Port of ``strugatzki_tpu/kernels/corr.py``:
   group of templates over the same files (:func:`correlation_traces`) is
   one pipeline: ``trace_spectra_kernel`` (``csrc/trace.cu``) writes every
   row the inverse FFT needs, one ``torch.fft.irfft`` transforms them all,
-  and ``trace_epilogue_kernel`` turns them into sims and boosts; the eager
-  per-template functions are the plain version, which CPU tensors take;
+  and ``trace_epilogue_kernel`` turns them into sims and boosts.  CPU
+  tensors take the same pipeline with each kernel's plain version;
 * **novelty curve** (FeatureSegmentation): ``correlateHalf`` at every window
   position from a lag product plus FFT window sums;
 * **gram similarity** (SelfSimilarity): ``correlateHalf`` over window pairs
@@ -42,18 +42,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .prep import _check
+from ._build import check, ints, pointers, raise_on
 
 __all__ = ["prepare_template", "shift_per_group", "sliding_dot_fft",
-           "correlation_trace", "trace_spectra",
-           "correlation_trace_from_spectra", "forward_spectra",
+           "correlation_trace", "trace_spectra", "forward_spectra",
            "TraceTemplate", "template_spectrum", "TracePlan", "trace_plan",
            "trace_rows_reference", "trace_epilogue_reference",
            "trace_rows_cuda", "trace_epilogue_cuda",
            "correlation_traces_cuda", "correlation_traces",
            "pack_spectra", "unpack_spectra", "window_sum_table",
-           "correlation_trace_from_sums", "novelty_trace", "novelty_sums",
-           "novelty_finish", "extract_windows", "window_stats", "gram_similarity_block"]
+           "novelty_trace", "novelty_sums", "novelty_finish",
+           "extract_windows", "window_stats", "gram_similarity_block"]
 
 # Read the counters as ``corr.KERNEL_LAUNCHES``: a ``from`` import copies
 # the int.
@@ -205,39 +204,6 @@ def trace_spectra(xs: torch.Tensor, num_temporal: int = 1):
     return X, Xsq
 
 
-def correlation_trace_from_spectra(X: torch.Tensor, Xsq: torch.Tensor,
-                                   t_padded: int,
-                                   template_t: torch.Tensor,
-                                   template_s: torch.Tensor,
-                                   a_std_t: float, a_std_s: float,
-                                   ln_avg_loud: float, temporal_shift,
-                                   temp_weight: float, max_boost: float,
-                                   num_temporal: int = 1):
-    """:func:`correlation_trace` continued from precomputed
-    :func:`trace_spectra` output (``t_padded`` = the original ``xs`` width)."""
-    nt = num_temporal
-    L = template_t.shape[-1]
-    W = t_padded - L + 1
-    if W <= 0:
-        raise ValueError(
-            f"template length {L} exceeds padded signal length {t_padded}")
-    N = _fft_len(t_padded)
-    ones_l = torch.conj(_ones_spectrum(L, N, X.device))
-
-    def wsum(spec_row):
-        return torch.fft.irfft(spec_row * ones_l, n=N)[..., :W]
-
-    s_t = wsum(X[..., :nt, :].sum(dim=-2))
-    q_t = wsum(Xsq[..., 0, :])
-    s_s = wsum(X[..., nt:, :].sum(dim=-2))
-    q_s = wsum(Xsq[..., 1, :])
-    mu0 = None if nt == 1 else wsum(X[..., 0, :]) / L
-    return _trace_epilogue(X, t_padded, s_t, q_t, s_s, q_s, mu0,
-                           template_t, template_s, a_std_t, a_std_s,
-                           ln_avg_loud, temporal_shift, temp_weight,
-                           max_boost, num_temporal=nt)
-
-
 # ---------------------------------------------------------------------------
 # the compact spectra cache: reduced planar spectra + window-sum tables
 # ---------------------------------------------------------------------------
@@ -286,59 +252,6 @@ def window_sum_table(xs: torch.Tensor, num_temporal: int = 1) -> torch.Tensor:
                        device=r.device)
     return torch.cat([zero, torch.cumsum(r, dim=-1, dtype=torch.float32)],
                      dim=-1)
-
-
-def correlation_trace_from_sums(X: torch.Tensor, sums: torch.Tensor,
-                                t_padded: int,
-                                template_t: torch.Tensor,
-                                template_s: torch.Tensor,
-                                a_std_t: float, a_std_s: float,
-                                ln_avg_loud: float, temporal_shift,
-                                temp_weight: float, max_boost: float,
-                                num_temporal: int = 1):
-    """:func:`correlation_trace` continued from forward spectra ``X`` and a
-    :func:`window_sum_table`: the 2-irfft trace (template dots only) of the
-    compact spectra cache."""
-    nt = num_temporal
-    L = template_t.shape[-1]
-    W = t_padded - L + 1
-    if W <= 0:
-        raise ValueError(
-            f"template length {L} exceeds padded signal length {t_padded}")
-
-    def wsum(r: int):
-        return sums[..., r, L:L + W] - sums[..., r, :W]
-
-    mu0 = None if nt == 1 else wsum(4) / L
-    return _trace_epilogue(X, t_padded, wsum(0), wsum(1), wsum(2), wsum(3),
-                           mu0, template_t, template_s, a_std_t, a_std_s,
-                           ln_avg_loud, temporal_shift, temp_weight,
-                           max_boost, num_temporal=nt)
-
-
-def _trace_epilogue(X, t_padded, s_t, q_t, s_s, q_s, mu0,
-                    template_t, template_s, a_std_t, a_std_s,
-                    ln_avg_loud, temporal_shift, temp_weight, max_boost,
-                    num_temporal: int = 1):
-    """Window statistics → template dots (2 irffts) → blend → boost gate.
-    ``mu0`` is the window mean of channel 0 when ``num_temporal != 1``,
-    else ``None`` (reuses ``mu_t``)."""
-    nt = num_temporal
-    L = template_t.shape[-1]
-    W = t_padded - L + 1
-    N = _fft_len(t_padded)
-
-    def tdot(tmpl, rows):
-        ta = torch.fft.rfft(tmpl, n=N, dim=-1)
-        spec = (torch.conj(ta) * rows).sum(dim=-2)
-        return torch.fft.irfft(spec, n=N)[..., :W]
-
-    return _trace_finish(
-        s_t, q_t, s_s, q_s, mu0,
-        lambda: tdot(template_t, X[..., :nt, :]),
-        lambda: tdot(template_s, X[..., nt:, :]),
-        L, X.shape[-2] - nt, a_std_t, a_std_s, ln_avg_loud, temporal_shift,
-        temp_weight, max_boost, num_temporal=nt)
 
 
 def _trace_finish(s_t, q_t, s_s, q_s, mu0, dot_t, dot_s, L: int, C_s: int,
@@ -452,13 +365,42 @@ def trace_plan(t_padded: int, lengths: tuple, weights: tuple,
                      tuple(lengths), bases, tuple(dots))
 
 
+def _step_bytes(C: int, t_padded: int, lanes: int, compact: bool = False,
+                num_temporal: int = 1) -> int:
+    """Bytes of transients one file holds in a files step of ``lanes``
+    traces (one a query template, two a punch pair) over files of ``C``
+    channels and padded width ``t_padded``.
+
+    The budget is ``2C + 8`` complex64 rows of ``N/2 + 1`` bins a file and
+    lane — ``8·(N/2+1)·(2C + 8)`` bytes, 2.4 MB for a two-minute file (C =
+    14, N = 16384): 36 rows a query file, 72 a punch file.  What a step
+    holds a file, in such rows: the forward spectra (``C`` + 2, unless
+    cached), and for its trace group the ``R`` rows of :func:`trace_plan`
+    (6 a query, 12 a punch), torch's copy of them for the c2r and the real
+    inverse-FFT output (about ``R`` rows' worth), so ~3R: 18 a query file
+    and 36 a punch file, 34 and 52 with the spectra uncached; the ``[W]``
+    traces and the band maximum's are under a row each.  2 GiB steps so
+    take ~880 such files a query lane, ~440 a punch pair.  The compact
+    cache (``compact``) adds, once a file, the unpacked complex64 ``X``
+    (``C`` rows) and the float32 :func:`window_sum_table` (``[4 or 5,
+    Tp+1]``): ~620 such files a query lane, ~370 a punch pair."""
+    bins = _fft_len(t_padded) // 2 + 1
+    per_file = 8 * bins * (2 * C + 8) * lanes
+    if compact:
+        rows = 4 if num_temporal == 1 else 5
+        per_file += 8 * bins * C + 4 * (t_padded + 1) * rows
+    return per_file
+
+
 def trace_rows_reference(X: torch.Tensor, Xsq, spectra, plan: TracePlan,
                          num_temporal: int = 1) -> torch.Tensor:
     """Plain PyTorch version of ``trace_spectra_kernel``: the plan's
     complex rows ``[..., R, N/2+1]`` from the files' spectra ``X [..., C,
     N/2+1]``, their group power spectra ``Xsq [..., 2, N/2+1]`` (unused on
-    the sums path) and each template's :func:`template_spectrum`, with the
-    ops of :func:`correlation_trace_from_spectra`."""
+    the sums path) and each template's :func:`template_spectrum`: each
+    window-sum row the product of a spectra row with ``conj`` of a ones
+    kernel's spectrum, each dot the channel sum of products with the
+    template's spectrum."""
     nt = num_temporal
     rows = []
     if plan.ones:
@@ -535,11 +477,11 @@ def trace_rows_cuda(X: torch.Tensor, Xsq, spectra, plan: TracePlan,
     global KERNEL_LAUNCHES, SPECTRA_LAUNCHES
     dev = X.device
     B, C, F = X.shape
-    _check(X, "X", torch.complex64, dev, (B, C, plan.n_fft // 2 + 1))
+    check(X, "X", torch.complex64, dev, (B, C, plan.n_fft // 2 + 1))
     if plan.ones:
-        _check(Xsq, "Xsq", torch.complex64, dev, (B, 2, F))
+        check(Xsq, "Xsq", torch.complex64, dev, (B, 2, F))
     for s in spectra:
-        _check(s, "template spectrum", torch.complex64, dev, (C, F))
+        check(s, "template spectrum", torch.complex64, dev, (C, F))
     if (not 1 <= len(spectra) <= TRACE_MAX_TEMPLATES
             or not 0 < num_temporal < C or B > 65535):
         raise ValueError(f"unsupported trace group: {len(spectra)} "
@@ -552,14 +494,13 @@ def trace_rows_cuda(X: torch.Tensor, Xsq, spectra, plan: TracePlan,
     lib = _trace_lib()
     err = lib.trace_spectra_launch(
         X.data_ptr(), Xsq.data_ptr() if plan.ones else None,
-        _pointers(o.data_ptr() for o in ones),
-        _pointers(s.data_ptr() for s in spectra), rows.data_ptr(),
+        pointers(o.data_ptr() for o in ones),
+        pointers(s.data_ptr() for s in spectra), rows.data_ptr(),
         _spectra_dots(plan), B, C, F, num_temporal,
         plan.rows, len(spectra), len(ones), plan.n_sum, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"trace_spectra_kernel launch ({plan}) failed: "
-                           + lib.trace_error_string(err).decode())
+    raise_on(err, lib.trace_error_string, "trace_spectra_kernel launch",
+             plan)
     KERNEL_LAUNCHES += 1
     SPECTRA_LAUNCHES += 1
     return rows
@@ -577,10 +518,10 @@ def trace_epilogue_cuda(Y: torch.Tensor, sums, plan: TracePlan, templates,
     global KERNEL_LAUNCHES, EPILOGUE_LAUNCHES
     dev = Y.device
     B, nt, Tp1 = Y.shape[0], num_temporal, plan.t_padded + 1
-    _check(Y, "Y", torch.float32, dev, (B, plan.rows, plan.n_fft))
+    check(Y, "Y", torch.float32, dev, (B, plan.rows, plan.n_fft))
     if sums is not None:
-        _check(sums, "sums", torch.float32, dev, (B, plan.n_sum, Tp1))
-    _check(shifts, "shifts", torch.float32, dev, (B,))
+        check(sums, "sums", torch.float32, dev, (B, plan.n_sum, Tp1))
+    check(shifts, "shifts", torch.float32, dev, (B,))
     if len(templates) != len(plan.lengths) or B > 65535:
         raise ValueError(f"unsupported trace group: {len(templates)} "
                          f"templates for {plan}, {B} files")
@@ -593,7 +534,7 @@ def trace_epilogue_cuda(Y: torch.Tensor, sums, plan: TracePlan, templates,
     err = lib.trace_epilogue_launch(
         Y.data_ptr(), sums.data_ptr() if sums is not None else None,
         shifts.data_ptr(),
-        _pointers(o.data_ptr() for pair in outs for o in pair),
+        pointers(o.data_ptr() for pair in outs for o in pair),
         _epilogue_ints(plan),
         _epilogue_scalars(plan, tuple((t.std_t, t.std_s, t.ln_avg_loud,
                                        t.temp_weight) for t in templates),
@@ -601,9 +542,8 @@ def trace_epilogue_cuda(Y: torch.Tensor, sums, plan: TracePlan, templates,
         B, plan.rows, plan.n_fft, plan.n_sum, Tp1, nt, len(templates),
         plan.t_padded - min(plan.lengths) + 1, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"trace_epilogue_kernel launch ({plan}) failed: "
-                           + lib.trace_error_string(err).decode())
+    raise_on(err, lib.trace_error_string, "trace_epilogue_kernel launch",
+             plan)
     KERNEL_LAUNCHES += 1
     EPILOGUE_LAUNCHES += 1
     return outs
@@ -613,52 +553,29 @@ def correlation_traces_cuda(X: torch.Tensor, aux: torch.Tensor,
                             use_sums: bool, t_padded: int, templates,
                             temporal_shift, max_boost: float,
                             num_temporal: int = 1):
-    """A trace group on ``X``'s device and current stream: the rows of
-    :func:`trace_plan` from :func:`trace_rows_cuda`, one
-    ``torch.fft.irfft`` over all of them, and :func:`trace_epilogue_cuda`
-    → ``[(sim, boost) [..., W]]`` float32, one pair a template.  Arguments
-    as :func:`correlation_traces`; CUDA tensors only.  A build or launch
-    failure raises; nothing is retried.  The inverse FFT is unscaled, so no
-    pass of its own multiplies its output by ``1/N``: the epilogue scales
-    each value it reads (exactly: ``N`` is a power of two)."""
-    dev = X.device
-    if dev.type != "cuda":
-        raise ValueError(f"X on {dev}: the kernels take CUDA tensors")
-    nt = num_temporal
-    plan = trace_plan(t_padded, tuple(t.temporal.shape[-1]
-                                      for t in templates),
-                      tuple(t.temp_weight for t in templates), use_sums, nt)
-    lead, C = X.shape[:-2], X.shape[-2]
-    B = math.prod(lead)
-    X = X.reshape(B, C, X.shape[-1]).contiguous()
-    aux = aux.reshape((B,) + aux.shape[-2:]).contiguous()
-    shifts = torch.as_tensor(temporal_shift, dtype=torch.float32,
-                             device=dev).expand(lead).reshape(B).contiguous()
-    spectra = [t.spectrum if t.spectrum is not None
-               else template_spectrum(t.temporal, t.spectral, plan.n_fft)
-               for t in templates]
-    rows = trace_rows_cuda(X, None if use_sums else aux, spectra, plan, nt)
-    Y = torch.fft.irfft(rows, n=plan.n_fft, norm="forward")
-    del rows
-    outs = trace_epilogue_cuda(Y, aux if use_sums else None, plan,
-                               templates, shifts, max_boost, C, nt)
-    return [(s.reshape(lead + s.shape[-1:]), b.reshape(lead + b.shape[-1:]))
-            for s, b in outs]
+    """:func:`correlation_traces` of CUDA tensors, on ``X``'s device and
+    current stream: :func:`trace_rows_cuda`, one unscaled
+    ``torch.fft.irfft`` and :func:`trace_epilogue_cuda`.  A CPU tensor
+    raises ``ValueError``."""
+    if X.device.type != "cuda":
+        raise ValueError(f"X on {X.device}: the kernels take CUDA tensors")
+    return correlation_traces(X, aux, use_sums, t_padded, templates,
+                              temporal_shift, max_boost, num_temporal)
 
 
 @lru_cache(maxsize=256)
 def _spectra_dots(plan: TracePlan) -> ctypes.Array:
     """``trace_spectra_kernel``'s dot rows, two a template."""
-    return _ints(r for d in plan.dots for r in d)
+    return ints(r for d in plan.dots for r in d)
 
 
 @lru_cache(maxsize=256)
 def _epilogue_ints(plan: TracePlan) -> ctypes.Array:
     """``trace_epilogue_kernel``'s rows of each template: ``L``, ``W``, its
     window-sum block, its two dots."""
-    return _ints(v for L, base, (r_t, r_s) in zip(plan.lengths, plan.bases,
-                                                 plan.dots)
-                 for v in (L, plan.t_padded - L + 1, base, r_t, r_s))
+    return ints(v for L, base, (r_t, r_s) in zip(plan.lengths, plan.bases,
+                                                plan.dots)
+                for v in (L, plan.t_padded - L + 1, base, r_t, r_s))
 
 
 @lru_cache(maxsize=256)
@@ -680,16 +597,6 @@ def _epilogue_scalars(plan: TracePlan, stats: tuple, max_boost: float,
     return (ctypes.c_float * len(consts))(*(_f32(c) for c in consts))
 
 
-def _pointers(ptrs) -> ctypes.Array:
-    ptrs = list(ptrs)
-    return (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
-
-
-def _ints(vals) -> ctypes.Array:
-    vals = list(vals)
-    return (ctypes.c_int * max(1, len(vals)))(*vals)
-
-
 def correlation_traces(X: torch.Tensor, aux: torch.Tensor, use_sums: bool,
                        t_padded: int, templates, temporal_shift,
                        max_boost: float, num_temporal: int = 1):
@@ -698,19 +605,44 @@ def correlation_traces(X: torch.Tensor, aux: torch.Tensor, use_sums: bool,
 
     ``X [..., C, N/2+1]`` are the files' forward spectra; ``aux`` their
     group power spectra ``Xsq`` (:func:`trace_spectra`), or with
-    ``use_sums`` a :func:`window_sum_table`.  CUDA runs
-    :func:`correlation_traces_cuda`, two kernel launches and one inverse
-    FFT a group; CPU runs :func:`correlation_trace_from_spectra` or
-    :func:`correlation_trace_from_sums` once a template."""
-    if X.device.type == "cuda":
-        return correlation_traces_cuda(X, aux, use_sums, t_padded,
-                                       templates, temporal_shift, max_boost,
-                                       num_temporal)
-    fn = (correlation_trace_from_sums if use_sums
-          else correlation_trace_from_spectra)
-    return [fn(X, aux, t_padded, t.temporal, t.spectral, t.std_t, t.std_s,
-               t.ln_avg_loud, temporal_shift, t.temp_weight, max_boost,
-               num_temporal=num_temporal) for t in templates]
+    ``use_sums`` a :func:`window_sum_table`.  One pipeline a group: the
+    rows of :func:`trace_plan`, one ``torch.fft.irfft`` over all of them,
+    and the epilogue.  CUDA tensors take the kernels,
+    :func:`trace_rows_cuda` and :func:`trace_epilogue_cuda`, around an
+    unscaled inverse FFT: no pass of its own multiplies its output by
+    ``1/N``, the epilogue scales each value it reads (exactly: ``N`` is a
+    power of two).  A build or launch failure raises; nothing is retried.
+    CPU tensors take each kernel's plain version,
+    :func:`trace_rows_reference` and :func:`trace_epilogue_reference`,
+    around the scaled inverse FFT."""
+    dev = X.device
+    nt = num_temporal
+    plan = trace_plan(t_padded, tuple(t.temporal.shape[-1]
+                                      for t in templates),
+                      tuple(t.temp_weight for t in templates), use_sums, nt)
+    lead, C = X.shape[:-2], X.shape[-2]
+    B = math.prod(lead)
+    X = X.reshape(B, C, X.shape[-1]).contiguous()
+    aux = aux.reshape((B,) + aux.shape[-2:]).contiguous()
+    shifts = torch.as_tensor(temporal_shift, dtype=torch.float32,
+                             device=dev).expand(lead).reshape(B).contiguous()
+    spectra = [t.spectrum if t.spectrum is not None
+               else template_spectrum(t.temporal, t.spectral, plan.n_fft)
+               for t in templates]
+    xsq, sums = (None, aux) if use_sums else (aux, None)
+    if dev.type == "cuda":
+        rows = trace_rows_cuda(X, xsq, spectra, plan, nt)
+        Y = torch.fft.irfft(rows, n=plan.n_fft, norm="forward")
+        del rows
+        outs = trace_epilogue_cuda(Y, sums, plan, templates, shifts,
+                                   max_boost, C, nt)
+    else:
+        Y = torch.fft.irfft(trace_rows_reference(X, xsq, spectra, plan, nt),
+                            n=plan.n_fft)
+        outs = trace_epilogue_reference(Y, sums, plan, templates, shifts,
+                                        max_boost, C, nt)
+    return [(s.reshape(lead + s.shape[-1:]), b.reshape(lead + b.shape[-1:]))
+            for s, b in outs]
 
 
 # ---------------------------------------------------------------------------

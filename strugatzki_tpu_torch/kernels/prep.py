@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..runtime.device import resolve
+from ._build import check, raise_on
 
 __all__ = ["prepare_database", "prepare_database_cuda",
            "prepare_database_reference", "long_plan", "long_queue"]
@@ -149,25 +150,6 @@ def _prep_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
-           device: torch.device, shape) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} is {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _raise_on(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed: "
-                           + lib.prep_error_string(err).decode())
-
-
 @lru_cache(maxsize=None)
 def long_ctas(tile: int, device: int) -> int:
     """How many ``prep_long`` CTAs for tiles of ``tile`` frames card
@@ -175,8 +157,9 @@ def long_ctas(tile: int, device: int) -> int:
     times its SMs)."""
     lib = _prep_lib()
     n = ctypes.c_int(0)
-    _raise_on(lib, lib.prep_long_ctas(tile, device, ctypes.byref(n)),
-              "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
+    raise_on(lib.prep_long_ctas(tile, device, ctypes.byref(n)),
+             lib.prep_error_string,
+             "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
     return n.value
 
 
@@ -200,9 +183,9 @@ def prepare_database_cuda(feats: torch.Tensor, norm: torch.Tensor,
         raise ValueError(f"unsupported feats shape {tuple(feats.shape)}")
     if not 0 <= num_temporal <= C:
         raise ValueError(f"num_temporal {num_temporal} outside [0, {C}]")
-    _check(feats, "feats", torch.float32, dev, (B, C, T))
-    _check(norm, "norm", torch.float32, dev, (C, 2))
-    _check(lens, "lens", torch.int32, dev, (B,))
+    check(feats, "feats", torch.float32, dev, (B, C, T))
+    check(norm, "norm", torch.float32, dev, (C, 2))
+    check(lens, "lens", torch.int32, dev, (B,))
 
     lib = _prep_lib()
     if feats.data_ptr() % 16:
@@ -219,12 +202,12 @@ def prepare_database_cuda(feats: torch.Tensor, norm: torch.Tensor,
                           device=dev)
     # the ticket (two words), one arrival counter a file, the prefix
     scratch = torch.zeros(2 * B + 3, dtype=torch.int32, device=dev)
-    _raise_on(lib, lib.prep_long_launch(
+    raise_on(lib.prep_long_launch(
         feats.data_ptr(), norm.data_ptr(), lens.data_ptr(), out.data_ptr(),
         shift_t.data_ptr(), shift_s.data_ptr(), partial.data_ptr(),
         scratch.data_ptr(), B, C, T, num_temporal, plan.tile,
         plan.tiles_per_row, int(plan.resident), plan.grid, dev.index,
-        stream), f"prep_long launch ({plan})")
+        stream), lib.prep_error_string, "prep_long launch", plan)
     KERNEL_LAUNCHES += 1
     return out, shift_t
 

@@ -79,33 +79,16 @@ _QUERY_CHUNK = 2048
 #: while the resident cache fills.
 _SPECTRA_CHUNK = 1024
 
-#: Bytes of FFT transients one files step of a query may hold.  The budget
-#: is ``2C + 8`` complex64 rows of ``N/2 + 1`` bins per file and trace lane
-#: (one lane a query template, two a punch pair) — ≈ ``8·(N/2+1)·(2C + 8)``
-#: bytes, 2.4 MB for a two-minute file (C = 14, N = 16384): 36 rows a query
-#: file, 72 a punch file.  What a step holds per file, in such rows: the
-#: forward spectra (``C`` + 2, unless cached), and for its trace group the
-#: ``R`` rows of :func:`~..kernels.corr.trace_plan` (6 a query, 12 a
-#: punch), torch's copy of them for the c2r and the real inverse-FFT output
-#: (about ``R`` rows' worth), so ~3R: 18 a query file and 36 a punch file,
-#: 34 and 52 with the spectra uncached; the ``[W]`` traces and the band
-#: maximum's are under a row each.  2 GiB steps so take ~880 such files per
-#: query lane, ~440 per punch pair.  A compact-cache step also holds, once
-#: per file, the unpacked complex64 ``X`` (``C`` rows) and the float32
-#: window-sum table (``[4 or 5, Tp+1]``): ~620 such files per query lane,
-#: ~370 per punch pair.
+#: Bytes of transients one files step of a query may hold; what a file
+#: holds is counted by :func:`~..kernels.corr._step_bytes`.
 _STEP_BYTES = 2 << 30
 
 
 def _files_step(C: int, t_padded: int, lanes: int, compact: bool = False,
                 num_temporal: int = 1) -> int:
-    """Files per query step under :data:`_STEP_BYTES` (see there)."""
-    bins = K._fft_len(t_padded) // 2 + 1
-    per_file = 8 * bins * (2 * C + 8) * lanes
-    if compact:
-        rows = 4 if num_temporal == 1 else 5
-        per_file += 8 * bins * C + 4 * (t_padded + 1) * rows
-    return max(1, _STEP_BYTES // per_file)
+    """Files per query step under :data:`_STEP_BYTES`."""
+    return max(1, _STEP_BYTES // K._step_bytes(C, t_padded, lanes, compact,
+                                               num_temporal))
 
 
 def _sync(device: torch.device) -> None:
@@ -428,6 +411,13 @@ class PunchQueryResult:
                                 num_per_file if num_per_file is not None
                                 else k_total, min_spacing)
         return [c.match for c in kept]
+
+
+#: each result array's masked value, by field name: what a column that
+#: :meth:`FeatureDatabase._fit_cols` pads holds (−inf sims are dropped by
+#: ``matches``'s finite gate); also the arrays a re-rank copies and re-sorts
+_FILLS = {"sims": -np.inf, "frames": 0, "boosts": 1.0, "punch_lens": 0,
+          "boosts_in": 1.0, "boosts_out": 1.0, "in_sims": -np.inf}
 
 
 # ---------------------------------------------------------------------------
@@ -1051,54 +1041,114 @@ class FeatureDatabase:
         return tuple(np.concatenate([_host(c[j]) for c in cols])
                      for j in range(len(cols[0])))
 
-    def _query_all(self, templates, temp_weight: float, max_boost: float,
-                   k: int, with_traces: bool = False):
-        """Every template (all of one length) against every row, sharing
-        each step's spectra → per template the host arrays ``(vals, idx,
-        boosts_k[, sims, boosts])`` over all rows."""
-        t_padded = self._raw.shape[2]
-        parts = [[] for _ in templates]
-        # the host time that queues every step's traces and top-k
+    def _steps(self, entries, lanes: int, work):
+        """Every entry against every row, sharing each files step's spectra
+        (:meth:`_spectra_steps` for ``lanes`` traces a file): ``work(entry,
+        X, aux, use_sums, shifts, lens)`` queues an entry's work for one
+        step, given the step's shifts and lengths, and returns its tuple of
+        device tensors → per entry the tuple of host arrays over all rows
+        (:meth:`_gather`)."""
+        parts = [[] for _ in entries]
+        # the host time that queues every step's work
         with trace("db.steps"):
-            for i, s, X, aux, use_sums in self._spectra_steps(lanes=1):
-                shifts = self._shards[i].shifts[s]
-                lens = self._shards[i].lens[s]
-                for q, t in enumerate(templates):
-                    (sims, boosts), = _traces(
-                        X, aux, use_sums, t_padded, [(t, temp_weight)],
-                        shifts, max_boost, self._num_temporal)
-                    out = _topk_epilogue(sims, boosts, lens, t.num_frames, k)
-                    parts[q].append(
-                        (i, out + (sims, boosts) if with_traces else out))
+            for i, s, X, aux, use_sums in self._spectra_steps(lanes):
+                sh = self._shards[i]
+                shifts, lens = sh.shifts[s], sh.lens[s]
+                for part, e in zip(parts, entries):
+                    part.append((i, work(e, X, aux, use_sums, shifts, lens)))
         return [self._gather(p) for p in parts]
 
-    def _punch_all(self, pairs, tw_in: float, tw_out: float,
-                   max_boost: float, k: int):
-        """Every ``(punch_in, punch_out, min_punch, max_punch)`` pair (all of
-        one shape) against every row, sharing each step's spectra → per
-        pair the six host arrays of :func:`_punch_from_spectra`."""
-        t_padded = self._raw.shape[2]
-        parts = [[] for _ in pairs]
-        # the host time that queues every step's traces, band maximum and
-        # top-k
-        with trace("db.steps"):
-            for i, s, X, aux, use_sums in self._spectra_steps(lanes=2):
-                shifts = self._shards[i].shifts[s]
-                lens = self._shards[i].lens[s]
-                for q, (p_in, p_out, mp, xp) in enumerate(pairs):
-                    parts[q].append((i, _punch_from_spectra(
-                        X, aux, use_sums, t_padded, p_in, p_out, shifts,
-                        lens, tw_in, tw_out, max_boost, int(mp),
-                        int(xp) - int(mp) + 1,
-                        num_temporal=self._num_temporal, k=k)))
-        return [self._gather(p) for p in parts]
-
-    def _trim(self, *arrays, axis: int = 0):
+    def _trim(self, arrays) -> tuple:
         """Drop the staging-padding rows beyond the real file count."""
-        n = len(self.files)
-        out = tuple(np.asarray(a)[(slice(None),) * axis + (slice(0, n),)]
-                    for a in arrays)
-        return out if len(out) > 1 else out[0]
+        return tuple(np.asarray(a)[:len(self.files)] for a in arrays)
+
+    def _query_group(self, templates, temp_weight: float, max_boost: float,
+                     k: int, exact_rerank: Optional[bool],
+                     with_traces: bool = False):
+        """Templates of one frame length against every row, sharing each
+        files step's spectra → a :class:`QueryResult` each (see
+        :meth:`query`), with ``with_traces`` beside its traces."""
+        if exact_rerank is None:
+            exact_rerank = self._reduced
+        L = templates[0].num_frames
+        k_dev = self._device_k(k, exact_rerank, L)
+        if k_dev == 0:
+            if with_traces:
+                raise ValueError(
+                    f"template ({L} frames) exceeds the "
+                    f"database's padded time capacity "
+                    f"{self._raw.shape[2]} — no file can contain it, and "
+                    "there is no trace to return")
+            return [self._masked_result(k) for _ in templates]
+        t_padded, nt = self._raw.shape[2], self._num_temporal
+
+        def work(t, X, aux, use_sums, shifts, lens):
+            (sims, boosts), = _traces(X, aux, use_sums, t_padded,
+                                      [(t, temp_weight)], shifts, max_boost,
+                                      nt)
+            out = _topk_epilogue(sims, boosts, lens, L, k_dev)
+            return out + (sims, boosts) if with_traces else out
+
+        results = []
+        for t, got in zip(templates, self._steps(templates, 1, work)):
+            vals, idx, boosts_k = self._trim(got[:3])
+            res = QueryResult(vals, idx, list(self.files), boosts_k)
+            if exact_rerank:
+                self._rerank_exact(res, t, temp_weight, max_boost)
+            self._fit_cols(res, k)
+            results.append((res, self._trim(got[3:])
+                            + (self._lens[:len(self.files)],))
+                           if with_traces else res)
+        return results
+
+    def _punch_group(self, pairs, tw_in: float, tw_out: float,
+                     max_boost: float, k: int,
+                     exact_rerank: Optional[bool]):
+        """``(punch_in, punch_out, min_punch, max_punch)`` pairs of one
+        ``(len_in, len_out)`` against every row, sharing each files step's
+        spectra → a :class:`PunchQueryResult` each (see
+        :meth:`query_punch`)."""
+        if exact_rerank is None:
+            exact_rerank = self._reduced
+        l_in, l_out = pairs[0][0].num_frames, pairs[0][1].num_frames
+        if self._k_clamp(1, l_in, l_out) == 0:
+            return [self._masked_result(k, int(mp)) for _, _, mp, _ in pairs]
+        k_dev = self._device_k(k, exact_rerank, l_in)
+        t_padded, nt = self._raw.shape[2], self._num_temporal
+
+        def work(pair, X, aux, use_sums, shifts, lens):
+            p_in, p_out, mp, xp = pair
+            return _punch_from_spectra(
+                X, aux, use_sums, t_padded, p_in, p_out, shifts, lens,
+                tw_in, tw_out, max_boost, int(mp), int(xp) - int(mp) + 1,
+                num_temporal=nt, k=k_dev)
+
+        results = []
+        for (p_in, p_out, mp, _), got in zip(pairs,
+                                             self._steps(pairs, 2, work)):
+            vals, t_idx, j_k, b_in, b_out, in_sims = self._trim(got)
+            res = PunchQueryResult(vals, t_idx, j_k, b_in, b_out,
+                                   list(self.files), int(mp), in_sims)
+            if exact_rerank:
+                self._rerank_exact_punch(res, p_in, p_out, tw_in, tw_out,
+                                         max_boost)
+            self._fit_cols(res, k)
+            results.append(res)
+        return results
+
+    @staticmethod
+    def _bucketed(items, key, answer) -> list:
+        """``answer(group)`` of each group of ``items`` that share
+        ``key(item)``, in key order → one result an item, in input
+        order."""
+        buckets: dict = {}
+        for q, item in enumerate(items):
+            buckets.setdefault(key(item), []).append(q)
+        results = [None] * len(items)
+        for _, idxs in sorted(buckets.items()):
+            for q, res in zip(idxs, answer([items[q] for q in idxs])):
+                results[q] = res
+        return results
 
     @traced("db.query")
     def query(self, template: "InputTemplate", temp_weight: float = 0.5,
@@ -1120,43 +1170,18 @@ class FeatureDatabase:
         candidates that noise pushed just outside the top-k.
         """
         self._check_template(template)
-        reduced = self._reduced
-        if exact_rerank is None:
-            exact_rerank = reduced
-        k_dev = self._inflated_k(k, template.num_frames) \
-            if (exact_rerank and reduced) else k
-        k_dev = self._k_clamp(k_dev, template.num_frames)
-        if k_dev == 0:
-            if with_traces:
-                raise ValueError(
-                    f"template ({template.num_frames} frames) exceeds the "
-                    f"database's padded time capacity "
-                    f"{self._raw.shape[2]} — no file can contain it, and "
-                    "there is no trace to return")
-            return self._masked_query_result(k)
-        got = self._query_all([template], temp_weight, max_boost, k_dev,
-                              with_traces)[0]
-        vals, idx, boosts_k = self._trim(got[0], got[1], got[2])
-        res = QueryResult(vals, idx, list(self.files), boosts_k)
-        if exact_rerank:
-            self._rerank_exact(res, template, temp_weight, max_boost)
-        if k_dev != k:
-            res.sims = self._fit_k_cols(res.sims, k, -np.inf)
-            res.frames = self._fit_k_cols(res.frames, k, 0)
-            if res.boosts is not None:
-                res.boosts = self._fit_k_cols(res.boosts, k, 1.0)
-        if with_traces:
-            sims, boosts = self._trim(got[3], got[4])
-            return res, (sims, boosts, self._lens[:len(self.files)])
-        return res
+        return self._query_group([template], temp_weight, max_boost, k,
+                                 exact_rerank, with_traces)[0]
 
-    def _inflated_k(self, k: int, tmpl_frames: int) -> int:
-        """Device top-k for reduced-precision data: 4× the requested k
-        (bounded by the window count) so the exact re-rank can pull back
-        candidates the lossy device sims pushed just outside the top-k.
-        May still exceed the window count when ``k`` itself does —
-        :meth:`_k_clamp` bounds the final device k in every query path."""
-        return max(k, min(4 * k, self._raw.shape[2] - tmpl_frames + 1))
+    def _device_k(self, k: int, exact_rerank: bool, tmpl_frames: int) -> int:
+        """The device top-k of a request whose (punch-in) template has
+        ``tmpl_frames`` frames.  Reduced-precision data under the exact
+        re-rank takes 4× the requested k (bounded by the window count) so
+        the re-rank can pull back candidates the lossy device sims pushed
+        just outside the top-k; :meth:`_k_clamp` bounds the result."""
+        if exact_rerank and self._reduced:
+            k = max(k, min(4 * k, self._raw.shape[2] - tmpl_frames + 1))
+        return self._k_clamp(k, tmpl_frames)
 
     def _k_clamp(self, k_dev: int, *tmpl_frames: int) -> int:
         """Largest device top-k the queries can take: their window axis has
@@ -1187,32 +1212,35 @@ class FeatureDatabase:
                     f"num_temporal {self._num_temporal}")
 
     @staticmethod
-    def _fit_k_cols(arr: np.ndarray, k: int, fill) -> np.ndarray:
-        """Return exactly ``k`` result columns: trim an inflated device k,
-        or pad a capacity-clamped one with masked values (−inf sims are
-        dropped by ``matches``'s finite gate like the staging padding)."""
-        if arr.shape[1] >= k:
-            return arr[:, :k]
-        pad = np.full((arr.shape[0], k - arr.shape[1]), fill, arr.dtype)
-        return np.concatenate([arr, pad], axis=1)
+    def _fit_cols(res, k: int) -> None:
+        """Give every array of a result exactly ``k`` columns: trim an
+        inflated device k, or pad a capacity-clamped one with each field's
+        masked value (:data:`_FILLS`; −inf sims are dropped by
+        ``matches``'s finite gate like the staging padding)."""
+        for name, fill in _FILLS.items():
+            arr = getattr(res, name, None)
+            if arr is None or arr.shape[1] == k:
+                continue
+            if arr.shape[1] > k:
+                arr = arr[:, :k]
+            else:
+                pad = np.full((arr.shape[0], k - arr.shape[1]), fill,
+                              arr.dtype)
+                arr = np.concatenate([arr, pad], axis=1)
+            setattr(res, name, arr)
 
-    def _masked_query_result(self, k: int) -> QueryResult:
-        """All-masked ``[num_rows, k]`` result (template fits no window)."""
+    def _masked_result(self, k: int, min_punch: Optional[int] = None):
+        """All-masked ``[num_rows, k]`` result (some template fits no
+        window), each array its field's masked value (:data:`_FILLS`): a
+        :class:`PunchQueryResult` with ``min_punch``, else a
+        :class:`QueryResult`."""
         B = len(self.files)
-        return QueryResult(np.full((B, k), -np.inf, np.float32),
-                           np.zeros((B, k), np.int32), list(self.files),
-                           np.ones((B, k), np.float32))
-
-    def _masked_punch_result(self, k: int, min_punch: int
-                             ) -> PunchQueryResult:
-        """All-masked punch result (some template fits no window)."""
-        B = len(self.files)
-        ones = np.ones((B, k), np.float32)
-        return PunchQueryResult(
-            np.full((B, k), -np.inf, np.float32),
-            np.zeros((B, k), np.int32), np.zeros((B, k), np.int32),
-            ones, ones.copy(), list(self.files), min_punch,
-            np.full((B, k), -np.inf, np.float32))
+        f32, i32 = np.empty((B, 0), np.float32), np.empty((B, 0), np.int32)
+        res = QueryResult(f32, i32, list(self.files), f32) \
+            if min_punch is None else PunchQueryResult(
+                f32, i32, i32, f32, f32, list(self.files), min_punch, f32)
+        self._fit_cols(res, k)
+        return res
 
     # -- exact re-rank -------------------------------------------------------
 
@@ -1221,30 +1249,36 @@ class FeatureDatabase:
     #: for any sane ``k_total·num_per_file`` lies far inside this.
     RERANK_LIMIT = 4096
 
+    def _rerank(self, res, score) -> None:
+        """Copy every array of a result, have ``score(fi, fj)`` write the
+        exact values of the candidates ``(fi[m], fj[m])`` that
+        :meth:`_rerank_candidates` picks, then re-sort every file's k hits
+        by the new sims, every array alike.  Candidates beyond the
+        ``RERANK_LIMIT`` globally best keep their device sims (they cannot
+        reach the match lists those limits are sized for)."""
+        names = [n for n in _FILLS if getattr(res, n, None) is not None]
+        for name in names:
+            setattr(res, name, np.array(getattr(res, name)))
+        cand = self._rerank_candidates(res.sims)
+        if cand.size:
+            score(cand[:, 0], cand[:, 1])
+        order = np.argsort(-np.nan_to_num(res.sims, nan=-np.inf), axis=1)
+        for name in names:
+            setattr(res, name,
+                    np.take_along_axis(getattr(res, name), order, axis=1))
+
     @traced("db.rerank")
     def _rerank_exact(self, res: QueryResult, template: "InputTemplate",
                       temp_weight: float, max_boost: float) -> None:
         """Replace each returned candidate's (sim, boost) with the exact
-        value and re-sort every file's k hits.  Candidates beyond the
-        ``RERANK_LIMIT`` globally best keep their device sims (they cannot
-        reach the match lists those limits are sized for)."""
-        res.sims = np.array(res.sims)
-        res.frames = np.array(res.frames)
-        if res.boosts is not None:
-            res.boosts = np.array(res.boosts)
-        cand = self._rerank_candidates(res.sims)
-        if cand.size:
+        value and re-sort every file's k hits (:meth:`_rerank`)."""
+        def score(fi, fj):
             sims, boosts = self._window_scores(
-                cand[:, 0], res.frames[cand[:, 0], cand[:, 1]],
-                template, temp_weight, max_boost)
-            res.sims[cand[:, 0], cand[:, 1]] = sims
+                fi, res.frames[fi, fj], template, temp_weight, max_boost)
+            res.sims[fi, fj] = sims
             if res.boosts is not None:
-                res.boosts[cand[:, 0], cand[:, 1]] = boosts
-        order = np.argsort(-np.nan_to_num(res.sims, nan=-np.inf), axis=1)
-        res.sims = np.take_along_axis(res.sims, order, axis=1)
-        res.frames = np.take_along_axis(res.frames, order, axis=1)
-        if res.boosts is not None:
-            res.boosts = np.take_along_axis(res.boosts, order, axis=1)
+                res.boosts[fi, fj] = boosts
+        self._rerank(res, score)
 
     def _rerank_candidates(self, sims: np.ndarray) -> np.ndarray:
         """(i, j) indices to re-score exactly: all finite candidates, or —
@@ -1426,16 +1460,7 @@ class FeatureDatabase:
         gates (inSim > 0, positive product), then each file's k hits
         re-sorted.  The device's *choice* of best punch length per offset
         is kept (re-picking it would need the whole band)."""
-        res.sims = np.array(res.sims)
-        res.frames = np.array(res.frames)
-        res.punch_lens = np.array(res.punch_lens)
-        res.boosts_in = np.array(res.boosts_in)
-        res.boosts_out = np.array(res.boosts_out)
-        if res.in_sims is not None:
-            res.in_sims = np.array(res.in_sims)
-        cand = self._rerank_candidates(res.sims)
-        if cand.size:
-            fi, fj = cand[:, 0], cand[:, 1]
+        def score(fi, fj):
             t_in = res.frames[fi, fj]
             t_out = t_in + res.min_punch + res.punch_lens[fi, fj]
             if self._rerank_device:
@@ -1455,20 +1480,14 @@ class FeatureDatabase:
             # round the product to f32 BEFORE the sqrt (an f64 product can
             # land 1 ulp away and flip downstream selection gates)
             prod = (in_sims * out_sims).astype(np.float32)
-            sims = np.where((in_sims > 0) & (prod > 0),
-                            np.sqrt(np.maximum(prod, 0)),
-                            -np.inf).astype(np.float32)
-            res.sims[fi, fj] = sims
+            res.sims[fi, fj] = np.where((in_sims > 0) & (prod > 0),
+                                        np.sqrt(np.maximum(prod, 0)),
+                                        -np.inf).astype(np.float32)
             res.boosts_in[fi, fj] = b_in
             res.boosts_out[fi, fj] = b_out
             if res.in_sims is not None:
                 res.in_sims[fi, fj] = in_sims
-        order = np.argsort(-np.nan_to_num(res.sims, nan=-np.inf), axis=1)
-        for name in ("sims", "frames", "punch_lens", "boosts_in",
-                     "boosts_out", "in_sims"):
-            arr = getattr(res, name)
-            if arr is not None:
-                setattr(res, name, np.take_along_axis(arr, order, axis=1))
+        self._rerank(res, score)
 
     # -- punch queries and batches ------------------------------------------
 
@@ -1497,37 +1516,9 @@ class FeatureDatabase:
         if min_punch > max_punch:
             raise ValueError(f"min_punch {min_punch} > max_punch {max_punch}")
         self._check_template(punch_in, punch_out)
-        reduced = self._reduced
-        if exact_rerank is None:
-            exact_rerank = reduced
-        k_dev = self._inflated_k(k, punch_in.num_frames) \
-            if (exact_rerank and reduced) else k
-        if self._k_clamp(1, punch_in.num_frames, punch_out.num_frames) == 0:
-            return self._masked_punch_result(k, min_punch)
-        k_dev = self._k_clamp(k_dev, punch_in.num_frames)
-        got = self._punch_all([(punch_in, punch_out, min_punch, max_punch)],
-                              temp_weight_in, temp_weight_out, max_boost,
-                              k_dev)[0]
-        vals, t_idx, j_k, b_in, b_out, in_sims = self._trim(*got)
-        res = PunchQueryResult(vals, t_idx, j_k, b_in, b_out,
-                               list(self.files), min_punch, in_sims)
-        if exact_rerank:
-            self._rerank_exact_punch(res, punch_in, punch_out,
-                                     temp_weight_in, temp_weight_out,
-                                     max_boost)
-        if k_dev != k:
-            self._fit_punch_cols(res, k)
-        return res
-
-    def _fit_punch_cols(self, res: PunchQueryResult, k: int) -> None:
-        """Trim/pad every punch result array to exactly ``k`` columns
-        (see :meth:`_fit_k_cols`)."""
-        for name, fill in (("sims", -np.inf), ("frames", 0),
-                           ("punch_lens", 0), ("boosts_in", 1.0),
-                           ("boosts_out", 1.0), ("in_sims", -np.inf)):
-            arr = getattr(res, name)
-            if arr is not None:
-                setattr(res, name, self._fit_k_cols(arr, k, fill))
+        return self._punch_group(
+            [(punch_in, punch_out, min_punch, max_punch)], temp_weight_in,
+            temp_weight_out, max_boost, k, exact_rerank)[0]
 
     @traced("db.query_batch")
     def query_batch(self, templates: Sequence["InputTemplate"],
@@ -1541,35 +1532,10 @@ class FeatureDatabase:
         cost one pass over the database, not Q.  Results come back in input
         order and equal the corresponding :meth:`query`."""
         self._check_template(*templates)
-        reduced = self._reduced
-        if exact_rerank is None:
-            exact_rerank = reduced
-        buckets: dict = {}
-        for qi, t in enumerate(templates):
-            buckets.setdefault(t.num_frames, []).append(qi)
-        results: List[Optional[QueryResult]] = [None] * len(templates)
-        for frames_len, idxs in sorted(buckets.items()):
-            k_dev = self._inflated_k(k, frames_len) \
-                if (exact_rerank and reduced) else k
-            k_dev = self._k_clamp(k_dev, frames_len)
-            if k_dev == 0:
-                for qi in idxs:
-                    results[qi] = self._masked_query_result(k)
-                continue
-            group = [templates[qi] for qi in idxs]
-            outs = self._query_all(group, temp_weight, max_boost, k_dev)
-            for q, qi in enumerate(idxs):
-                vals, idx, boosts = self._trim(*outs[q])
-                res = QueryResult(vals, idx, list(self.files), boosts)
-                if exact_rerank:
-                    self._rerank_exact(res, group[q], temp_weight, max_boost)
-                if k_dev != k:
-                    res.sims = self._fit_k_cols(res.sims, k, -np.inf)
-                    res.frames = self._fit_k_cols(res.frames, k, 0)
-                    if res.boosts is not None:
-                        res.boosts = self._fit_k_cols(res.boosts, k, 1.0)
-                results[qi] = res
-        return results
+        return self._bucketed(
+            templates, lambda t: t.num_frames,
+            lambda group: self._query_group(group, temp_weight, max_boost,
+                                            k, exact_rerank))
 
     @traced("db.punch_batch")
     def query_punch_batch(self, pairs: Sequence[tuple],
@@ -1587,44 +1553,16 @@ class FeatureDatabase:
         len_out)``; a bucket shares each files step's spectra.  Results come
         back in input order and each equals the corresponding
         :meth:`query_punch`."""
-        reduced = self._reduced
-        if exact_rerank is None:
-            exact_rerank = reduced
         for q, (p_in, p_out, mp, xp) in enumerate(pairs):
             if mp > xp:
                 raise ValueError(
                     f"pair {q}: min_punch {mp} > max_punch {xp}")
             self._check_template(p_in, p_out)
-        buckets: dict = {}
-        for q, (p_in, p_out, *_band) in enumerate(pairs):
-            buckets.setdefault((p_in.num_frames, p_out.num_frames),
-                               []).append(q)
-        results: List[Optional[PunchQueryResult]] = [None] * len(pairs)
-        for (l_in, l_out), idxs in sorted(buckets.items()):
-            if self._k_clamp(1, l_in, l_out) == 0:
-                for q in idxs:
-                    results[q] = self._masked_punch_result(
-                        k, int(pairs[q][2]))
-                continue
-            k_dev = self._inflated_k(k, l_in) \
-                if (exact_rerank and reduced) else k
-            k_dev = self._k_clamp(k_dev, l_in)
-            group = [pairs[q] for q in idxs]
-            outs = self._punch_all(group, temp_weight_in, temp_weight_out,
-                                   max_boost, k_dev)
-            for g, q in enumerate(idxs):
-                p_in, p_out, mp, _xp = pairs[q]
-                res = PunchQueryResult(
-                    *self._trim(*outs[g][:5]), list(self.files), int(mp),
-                    self._trim(outs[g][5]))
-                if exact_rerank:
-                    self._rerank_exact_punch(res, p_in, p_out,
-                                             temp_weight_in,
-                                             temp_weight_out, max_boost)
-                if k_dev != k:
-                    self._fit_punch_cols(res, k)
-                results[q] = res
-        return results
+        return self._bucketed(
+            pairs, lambda p: (p[0].num_frames, p[1].num_frames),
+            lambda group: self._punch_group(group, temp_weight_in,
+                                            temp_weight_out, max_boost, k,
+                                            exact_rerank))
 
     # -- persistence ---------------------------------------------------------
 

@@ -21,6 +21,7 @@ from strugatzki_tpu.analysis.correlation import InputTemplate as JT
 from strugatzki_tpu.kernels import mathref as M
 from strugatzki_tpu.parallel import database as JD
 from strugatzki_tpu_torch.analysis.correlation import InputTemplate as PT
+from strugatzki_tpu_torch.kernels import corr as PK
 from strugatzki_tpu_torch.parallel import database as PD
 from strugatzki_tpu_torch.parallel import sweep as PW
 
@@ -442,9 +443,13 @@ def test_pad_rows_and_steps_follow_the_jax_package():
     for n in (1, 7, 2048, 2049, 4095, 10000, 10240):
         assert PD._pad_rows_of(n) == JD._pad_rows_of(n, None)
     assert PD._QUERY_CHUNK == JD._QUERY_CHUNK
-    # a two-minute file: ~880 files per query step, ~440 per punch step
-    assert 800 <= PD._files_step(14, 10752, 1) <= 1000
-    assert PD._files_step(14, 10752, 2) == PD._files_step(14, 10752, 1) // 2
+    # a two-minute file: ~880 files per query step, ~440 per punch step,
+    # from the bytes a file holds in a step (counted beside the trace plan)
+    query, punch = (PD._STEP_BYTES // PK._step_bytes(14, 10752, lanes)
+                    for lanes in (1, 2))
+    assert 800 <= query <= 1000 and punch == query // 2
+    assert (PD._files_step(14, 10752, 1), PD._files_step(14, 10752, 2)) \
+        == (query, punch)
 
 
 @pytest.mark.parametrize("kw,exc,what", [

@@ -42,6 +42,8 @@ MODES = {
     "memmap": (dict(raw_store="memmap"), dict(raw_store="memmap")),
     "memmap+compact": (dict(raw_store="memmap", cache_spectra="bf16"),
                        dict(raw_store="memmap", cache_spectra="bf16")),
+    "f32": ({}, {}),
+    "f32+cache": (dict(cache_spectra=True), dict(cache_spectra=True)),
 }
 REDUCED = ["compact", "bf16", "bf16+compact"]
 
@@ -129,11 +131,26 @@ def test_reduced_punch_matches_jax(entries, mode):
                    RAW_TOL[mode], frames="top")
 
 
-@pytest.mark.parametrize("mode", REDUCED)
+def _assert_same_bits(a, b):
+    """Two results alike in every field: arrays of one dtype and shape with
+    the same bytes, every other field equal."""
+    assert type(a) is type(b)
+    for name, x in vars(a).items():
+        y = getattr(b, name)
+        if isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype and x.shape == y.shape, name
+            assert x.tobytes() == y.tobytes(), name
+        else:
+            assert x == y, name
+
+
+@pytest.mark.parametrize("mode", REDUCED + ["f32", "f32+cache"])
 def test_reduced_batches_match_single_and_jax(entries, mode):
-    """query_batch and query_punch_batch equal their single queries (the
-    automatic re-rank and k-inflation included) and the JAX package's
-    batches (tests/test_query_punch.py bf16 re-rank and compact loops)."""
+    """query_batch and query_punch_batch equal their single queries bit for
+    bit in every field (the automatic re-rank and k-inflation of the
+    reduced modes included; float32 features without a cache and with
+    the complex64 one) and the JAX package's batches
+    (tests/test_query_punch.py bf16 re-rank and compact loops)."""
     ents = _plant_pair(entries)
     jdb, pdb = _mode_dbs(ents, mode, pad_multiple=64)
     blocks = [ents[0][1][:, 10:50], ents[2][1][:, 30:85],
@@ -143,10 +160,7 @@ def test_reduced_batches_match_single_and_jax(entries, mode):
     for q, (p, j) in enumerate(zip(pb, jb)):
         assert p.boosts is not None
         _assert_result(p, j, RERANK_TOL)
-        single = pdb.query(pts[q], k=3)
-        for name in ("sims", "frames", "boosts"):
-            np.testing.assert_array_equal(getattr(p, name),
-                                          getattr(single, name))
+        _assert_same_bits(p, pdb.query(pts[q], k=3))
     specs = [((3, 10, 40), (3, 100, 120), 70, 85),
              ((1, 50, 90), (4, 100, 125), 60, 90),
              ((3, 10, 40), (4, 100, 125), 70, 120)]
@@ -159,11 +173,7 @@ def test_reduced_batches_match_single_and_jax(entries, mode):
     for (pi, po, lo, hi), p, j in zip(pp, pdb.query_punch_batch(pp, k=3),
                                       jdb.query_punch_batch(jp, k=3)):
         _assert_result(p, j, PUNCH_TOL, frames="top")
-        single = pdb.query_punch(pi, po, lo, hi, k=3)
-        for name in ("sims", "frames", "punch_lens", "boosts_in",
-                     "boosts_out", "in_sims"):
-            np.testing.assert_array_equal(getattr(p, name),
-                                          getattr(single, name))
+        _assert_same_bits(p, pdb.query_punch(pi, po, lo, hi, k=3))
         assert p.min_punch == lo
 
 

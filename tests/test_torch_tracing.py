@@ -4,8 +4,8 @@ CPU: off it records nothing and enters no ``record_function``; under
 ``-c``, ``query``, ``query_punch`` and the streamed ``-x`` render record
 their spans and counters, with parents that form one tree per unit, the
 ``-c`` search's thread inheriting its caller's span, self times exact on a
-synthetic clock, and ``db.files_steps`` equal to the steps
-``_files_step`` implies; ``STRUGATZKI_PROFILE`` makes the CLI write a
+synthetic clock, and ``db.files_steps`` equal to the steps the
+step budget implies; ``STRUGATZKI_PROFILE`` makes the CLI write a
 trace that holds every thread's spans."""
 
 import contextvars
@@ -307,10 +307,11 @@ def test_self_time_is_less_the_union_of_the_children(intervals, self_s,
 
 
 def _expected_steps(db, lanes):
-    """Files steps of one pass over ``db``, from ``_files_step``."""
+    """Files steps of one pass over ``db``, from the step budget and the
+    bytes a file holds in a step."""
     C, T = db._raw.shape[1], db._raw.shape[2]
-    step = PD._files_step(C, T, lanes, db._spectra_reduced,
-                          db._num_temporal)
+    step = max(1, PD._STEP_BYTES // K._step_bytes(
+        C, T, lanes, db._spectra_reduced, db._num_temporal))
     return sum(math.ceil((r.stop - r.start) / step)
                for _, r in db._chunks())
 
@@ -331,20 +332,48 @@ def test_files_steps_are_the_steps_of_files_step(cache, call, monkeypatch):
     lanes = 2 if "punch" in call else 1
     want = _expected_steps(db, lanes)
     assert want > 1
+    _profiled(_db_calls(db, entries, norm)[call])
+    assert L.snapshot()["counters"]["db.files_steps"] == want
+
+
+def _db_calls(db, entries, norm):
+    """Each public request of ``db`` as a function, its templates built."""
     x = entries[5][1]
 
     def tmpl(a, b):
         return InputTemplate.from_features(x, norm, a, b)
+    query, other = tmpl(40, 90), tmpl(10, 60)
     pair = (tmpl(40, 70), tmpl(110, 130), 60, 80)
-    calls = {
-        "query": lambda: db.query(tmpl(40, 90), k=2),
+    return {
+        "query": lambda: db.query(query, k=2),
         "punch": lambda: db.query_punch(*pair, k=2),
-        "query_batch": lambda: db.query_batch([tmpl(40, 90), tmpl(10, 60)],
-                                              k=2),
+        "query_batch": lambda: db.query_batch([query, other], k=2),
         "punch_batch": lambda: db.query_punch_batch([pair, pair], k=2),
     }
-    _profiled(calls[call])
-    assert L.snapshot()["counters"]["db.files_steps"] == want
+
+
+#: each public request's root span
+ROOTS = {"query": "db.query", "punch": "db.punch",
+         "query_batch": "db.query_batch", "punch_batch": "db.punch_batch"}
+
+
+@pytest.mark.parametrize("call", sorted(ROOTS))
+@pytest.mark.parametrize("cache", [True, "bf16"])
+def test_a_request_records_one_root(cache, call):
+    """A public request records its own root span once and no request span
+    inside it (the benchmark counts ``db.query`` + ``db.punch`` roots as
+    its units), with the complex64 cache and with the compact one, whose
+    exact re-rank nests ``db.rerank``."""
+    entries = _entries()
+    norm = _norm(entries)
+    db = PD.FeatureDatabase(entries, norm, device="cpu", cache_spectra=cache)
+    run = _db_calls(db, entries, norm)[call]
+    _profiled(run)
+    recs = L.records()
+    assert [r.name for r in recs if r.parent == 0] == [ROOTS[call]]
+    assert [r.name for r in recs if r.name in ROOTS.values()] \
+        == [ROOTS[call]]
+    assert ("db.rerank" in {r.name for r in recs}) == (cache == "bf16")
 
 
 def test_the_ring_keeps_the_newest_records(monkeypatch):
